@@ -121,6 +121,9 @@ def vgg_preprocess(rgb):
 
 def feature_normalize(feat, dim: int = -1, eps: float = 2.220446049250313e-16):
     """L2-normalize along `dim`, with eps added to the norm (not under the
-    square root), as the reference does. The norm is taken in fp32."""
-    norm = torch.linalg.vector_norm(feat.float(), ord=2, dim=dim, keepdim=True)
+    square root), as the reference does. The norm is taken in fp32 (fp64
+    for fp64 input)."""
+    norm = torch.linalg.vector_norm(
+        feat.to(torch.promote_types(feat.dtype, torch.float32)), ord=2,
+        dim=dim, keepdim=True)
     return feat / (norm.to(feat.dtype) + eps)

@@ -31,9 +31,15 @@
 // masked by bounds checks and never enter the max or the sums; every key
 // tile a block visits holds at least one valid key, so m is finite after
 // its first tile and no -inf - -inf arises.
+//
+// Every score is formed by corr_score_step (corr_common.cuh): channels in
+// ascending order from 0.f, so the backward kernels recompute the same
+// bits and their s == m test finds the row max.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "corr_common.cuh"
 
 namespace {
 
@@ -135,7 +141,7 @@ corr_fwd_kernel(const float* __restrict__ theta, const float* __restrict__ phi,
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) s[i][j] = fmaf(av[i], bw[j], s[i][j]);
+          for (int j = 0; j < 8; ++j) s[i][j] = corr_score_step(s[i][j], av[i], bw[j]);
       }
     }
 

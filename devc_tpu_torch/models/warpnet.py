@@ -109,8 +109,9 @@ def _flatten(x):
 
 def _center_normalize(feat_flat, eps: float = 2.220446049250313e-16):
     """[B, N, C]: subtract the mean over N per channel, then L2-normalise
-    over C per position (eps added to the norm). Statistics in fp32."""
-    ff = feat_flat.float()
+    over C per position (eps added to the norm). Statistics in fp32 (fp64
+    for fp64 input)."""
+    ff = feat_flat.to(torch.promote_types(feat_flat.dtype, torch.float32))
     feat = ff - ff.mean(dim=1, keepdim=True)
     norm = torch.linalg.vector_norm(feat, ord=2, dim=-1, keepdim=True) + eps
     return (feat / norm).to(feat_flat.dtype)
@@ -130,13 +131,33 @@ def embed_keys(model: WarpNet, b_lab, b_feats):
     return phi, values
 
 
-def warp_with_keys(theta, phi, values, out_hw, temperature: float = 0.005):
+def warp_with_keys(theta, phi, values, out_hw, temperature: float = 0.005,
+                   differentiable: bool = False):
     """Correspondence, then nearest x4 up to out_hw. Returns NHWC
-    warped Lab [B, H, W, 3] and similarity [B, H, W, 1]."""
+    warped Lab [B, H, W, 3] and similarity [B, H, W, 1]. differentiable:
+    the correspondence may be differentiated (on the card: K1 with the
+    backward kernels K2b/K3)."""
     b = theta.shape[0]
     fh, fw = out_hw[0] // 4, out_hw[1] // 4
-    warped, sim = correspondence_warp(theta, phi, values, temperature)
+    warped, sim = correspondence_warp(theta, phi, values, temperature,
+                                      differentiable=differentiable)
     warped = warped.reshape(b, fh, fw, 3).permute(0, 3, 1, 2)
     sim = sim.reshape(b, fh, fw, 1).permute(0, 3, 1, 2)
     return (upsample_nearest(warped, 4).permute(0, 2, 3, 1),
             upsample_nearest(sim, 4).permute(0, 2, 3, 1))
+
+
+def warpnet_apply(model: WarpNet, b_lab, a_feats, b_feats,
+                  temperature: float = 0.005, differentiable: bool = False):
+    """Warp the exemplar's colours onto the frame, both embeddings computed
+    here (devc_tpu/models/warpnet.py::warpnet_apply). The training path:
+    the exemplar's phi is recomputed every step under gradient.
+
+    b_lab: [B, H, W, 3] exemplar network-Lab; a_feats / b_feats: NHWC
+    relu2_1..relu5_1 of frame and exemplar, feature_normalized. Returns
+    NHWC warped Lab [B, H, W, 3] and similarity [B, H, W, 1].
+    """
+    theta = embed_queries(model, a_feats)
+    phi, values = embed_keys(model, b_lab, b_feats)
+    return warp_with_keys(theta, phi, values, (b_lab.shape[1], b_lab.shape[2]),
+                          temperature, differentiable)

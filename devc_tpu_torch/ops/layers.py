@@ -4,7 +4,8 @@ devc_tpu/ops/layers.py).
 Semantics are those of the reference's PyTorch layers: InstanceNorm2d
 (affine=False, biased variance, eps 1e-5), PReLU with one shared slope,
 LeakyReLU, ReflectionPad2d and replicate padding. Convolutions are plain
-`nn.Conv2d` in the modules.
+`nn.Conv2d` in the modules. `unfold_patches` (the losses' F.unfold) takes
+devc_tpu's NHWC layout, as its callers do.
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ from torch import nn
 
 
 def instance_norm(x, eps: float = 1e-5):
-    """Normalise each (n, c) plane of [N, C, H, W]; statistics in fp32."""
-    xf = x.float()
+    """Normalise each (n, c) plane of [N, C, H, W]; statistics in fp32
+    (fp64 for fp64 input)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = xf.mean(dim=(2, 3), keepdim=True)
     var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
@@ -70,3 +72,16 @@ def replicate_pad(x, pad_h=(0, 0), pad_w=(0, 0)):
     """Edge padding on the spatial dims: pad_h = (top, bottom), pad_w =
     (left, right)."""
     return F.pad(x, (pad_w[0], pad_w[1], pad_h[0], pad_h[1]), mode="replicate")
+
+
+def unfold_patches(x, patch_size: int):
+    """F.unfold of NHWC x with zero padding patch_size // 2: [N, H, W, C]
+    -> [N, H, W, C * k * k], channel-major (index c * k * k + dy * k + dx),
+    as devc_tpu/ops/layers.py::unfold_patches."""
+    pad = patch_size // 2
+    n, h, w, c = x.shape
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+    views = [xp[:, dy:dy + h, dx:dx + w, :]
+             for dy in range(patch_size) for dx in range(patch_size)]
+    stacked = torch.stack(views, dim=4)  # [N, H, W, C, k * k]
+    return stacked.reshape(n, h, w, c * patch_size * patch_size)

@@ -1,8 +1,16 @@
 """Single-frame colourisation (mirrors devc_tpu/pipeline/frame.py).
 
-`PipelineModels` holds the three networks in place of devc_tpu's params
-dict {"vgg", "warpnet", "colorvid"}. All images are NHWC network-Lab
-(L centered by -50).
+`PipelineModels` holds the three networks, frozen, in place of devc_tpu's
+params dict {"vgg", "warpnet", "colorvid"}; training passes any object
+with those three attributes (trainable WarpNet and ColorVidNet, frozen
+VGG19). All images are NHWC network-Lab (L centered by -50).
+
+The exemplar state `ref_state` takes one of two forms:
+  * {"phi", "values"} from `prepare_reference`: the key embedding computed
+    once per clip (inference);
+  * {"lab", "features"}: the exemplar's Lab and VGG taps, from which
+    `warpnet_apply` recomputes the key embedding on every call, under
+    gradient (training, devc_tpu's features_b path).
 """
 
 from __future__ import annotations
@@ -18,7 +26,9 @@ from devc_tpu_torch.models.warpnet import (
     embed_keys,
     embed_queries,
     warp_with_keys,
+    warpnet_apply,
 )
+from devc_tpu_torch.utils.convert import checked_device
 
 # VGG taps used throughout the live path
 FEATURE_TAPS = ("r12", "r22", "r32", "r42", "r52")
@@ -38,10 +48,7 @@ class PipelineModels(nn.Module):
         """Build on `device` from {"vgg", "warpnet", "colorvid"} state dicts
         in the reference layout; each loads with strict=True. A CUDA
         device without a GPU raises: nothing falls back to the CPU."""
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {device} requested but "
-                               "torch.cuda.is_available() is False")
+        device = checked_device(device)
         with torch.device("meta"):  # no throw-away default init
             models = cls()
         for name in ("vgg", "warpnet", "colorvid"):
@@ -71,30 +78,54 @@ def prepare_reference(models: PipelineModels, ref_lab):
     return {"phi": phi, "values": values}
 
 
-def warp_color(models: PipelineModels, a_l, ref_state,
-               temperature: float = 0.01):
+def warp_color(models, a_l, ref_state, temperature: float = 0.01,
+               differentiable: bool = False):
     """Warp the exemplar's colour onto the gray frame.
 
-    a_l: [B, H, W, 1] centered luminance. ref_state: from prepare_reference.
+    a_l: [B, H, W, 1] centered luminance. ref_state: either form above.
+    The frame's VGG features carry no gradient (a frozen extractor, as
+    devc_tpu's stop_gradient). differentiable: the correspondence may be
+    differentiated (training).
     Returns (warped_lab [B, H, W, 3], similarity [B, H, W, 1]).
     """
-    feats_a = vgg19_extract(models.vgg, cs.gray_to_rgb(a_l), FEATURE_TAPS)
-    theta = embed_queries(models.warpnet,
-                          [cs.feature_normalize(f) for f in feats_a[1:]])
-    return warp_with_keys(theta, ref_state["phi"], ref_state["values"],
-                          (a_l.shape[1], a_l.shape[2]), temperature)
+    with torch.no_grad():
+        feats_a = vgg19_extract(models.vgg, cs.gray_to_rgb(a_l), FEATURE_TAPS)
+    a_n = [cs.feature_normalize(f) for f in feats_a[1:]]
+    hw = (a_l.shape[1], a_l.shape[2])
+    if "phi" in ref_state:
+        theta = embed_queries(models.warpnet, a_n)
+        return warp_with_keys(theta, ref_state["phi"], ref_state["values"],
+                              hw, temperature, differentiable)
+    b_n = [cs.feature_normalize(f.detach()) for f in ref_state["features"][1:]]
+    return warpnet_apply(models.warpnet, ref_state["lab"], a_n, b_n,
+                         temperature, differentiable)
 
 
-def frame_colorization(models: PipelineModels, a_lab, a_last_lab, ref_state,
-                       temperature: float = 0.01):
+def frame_colorization(models, a_lab, a_last_lab, ref_state,
+                       temperature: float = 0.01, noise=None,
+                       luminance_noise: float = 0.0,
+                       joint_training: bool = True):
     """Colourise one frame.
 
     a_lab: [B, H, W, 3] frame network-Lab (only L is used); a_last_lab: the
     previous prediction [L, ab] (zeros for the first frame).
+    noise: None, or standard-normal draws [B, H, W, 1] added to L times
+    luminance_noise (training). The caller draws them, so that a
+    recomputed forward (activation checkpointing) sees the same noise.
+    joint_training: when False the warp branch is cut from the graph
+    (devc_tpu's stop_gradient; the correspondence then runs without grad).
     Returns (pred_ab [B, H, W, 2], warped_lab, similarity).
     """
     a_l = a_lab[..., 0:1]
-    warped_lab, similarity = warp_color(models, a_l, ref_state, temperature)
+    if luminance_noise and noise is not None:
+        a_l = a_l + noise * luminance_noise
+    if joint_training:
+        warped_lab, similarity = warp_color(models, a_l, ref_state,
+                                            temperature, differentiable=True)
+    else:
+        with torch.no_grad():
+            warped_lab, similarity = warp_color(models, a_l, ref_state,
+                                                temperature)
     color_input = torch.cat(
         [a_l, warped_lab[..., 1:3], similarity, a_last_lab], dim=-1)
     pred_ab = colorvidnet_apply(models.colorvid, color_input)

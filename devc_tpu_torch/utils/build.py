@@ -1,9 +1,10 @@
 """Build the package's CUDA kernels at first use and bind them with ctypes.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into one
-shared library with a plain C interface. The library lands in
-`devc_tpu_torch/_build/<hash>/`, keyed by a hash of the sources and flags,
-so an unchanged checkout builds once. Each C entry point returns
+Every `csrc/*.cu` file is compiled by its own `nvcc` for Hopper (`sm_90a`),
+all of them at once, and the objects are linked into one shared library
+with a plain C interface. The library lands in
+`devc_tpu_torch/_build/<hash>/`, keyed by a hash of the sources (headers
+included) and flags, so an unchanged checkout builds once. Each C entry point returns
 `cudaGetLastError()` after its launch; `check` raises on a non-zero code.
 A failed build raises: nothing here falls back to the plain versions.
 """
@@ -24,7 +25,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -36,6 +37,12 @@ _SIGNATURES = {
     "devc_corr_fwd": ([_P] * 7 + [_I] * 5 + [ctypes.c_float, _P], _I),
     # a, b, c, d, x, n_sys, len, stream
     "devc_tridiag_pcr": ([_P] * 5 + [_I, _I, _P], _I),
+    # theta, phi, values, m, l, dd, dsim, dout, dtheta, part, batch, nq, nk,
+    # c, splits, inv_t, stream
+    "devc_corr_bwd_dq": ([_P] * 10 + [_I] * 5 + [ctypes.c_float, _P], _I),
+    # theta, phi, values, m, l, dd, dsim, dout, dphi, dvalues, part, batch,
+    # nq, nk, c, splits, inv_t, stream
+    "devc_corr_bwd_dkv": ([_P] * 11 + [_I] * 5 + [ctypes.c_float, _P], _I),
     "devc_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -67,7 +74,7 @@ def _sources() -> list[str]:
 
 def _key(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
             h.update(f.read())
@@ -89,13 +96,29 @@ def load_kernels():
         if not os.path.exists(lib_path):
             os.makedirs(out_dir, exist_ok=True)
             tmp = f"{lib_path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+            nvcc = _nvcc()
+            objs = [os.path.join(out_dir, os.path.basename(s) + f".{os.getpid()}.o")
+                    for s in srcs]
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                    for s, o in zip(srcs, objs)]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for cmd in cmds]
+            outs = [p.communicate()[0] for p in procs]  # waits for all
+            log = "".join(outs)
+            for cmd, p, out in zip(cmds, procs, outs):
+                if p.returncode != 0:
+                    raise KernelError(
+                        f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+            cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
             res = subprocess.run(cmd, capture_output=True, text=True)
-            log = res.stdout + res.stderr
+            log += res.stdout + res.stderr
             if res.returncode != 0:
                 raise KernelError(
-                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{log}"
-                )
+                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                    f"{res.stdout}{res.stderr}")
+            for o in objs:
+                os.remove(o)
             os.replace(tmp, lib_path)  # atomic against a concurrent build
         lib = ctypes.CDLL(lib_path)
         for name, (argtypes, restype) in _SIGNATURES.items():

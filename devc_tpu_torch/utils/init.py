@@ -5,7 +5,9 @@ seeds, the same kaiming-uniform bounds (sqrt(1 / fan_in), as
 torch.nn.Conv2d), the same draws in the same order, so `--random_init
 --seed s` gives identical weights in both packages. The result is the
 devc_tpu parameter pytree (HWIO numpy arrays); `utils/convert.py` turns it
-into the modules' state dicts.
+into the modules' state dicts. devc_tpu has no host init of the critic;
+`host_discriminator_init` draws one in the same style, in devc_tpu's
+layout, so both packages can be given the same critic.
 """
 
 from __future__ import annotations
@@ -15,14 +17,16 @@ import math
 import numpy as np
 
 from devc_tpu_torch.models.colorvidnet import _CONVS
+from devc_tpu_torch.models.discriminator import layer_table
 from devc_tpu_torch.models.vgg19 import _CFG
 
 
 def _conv(rng, in_ch, out_ch, ksize, groups=1, bias=True):
-    fan_in = (in_ch // groups) * ksize * ksize
+    kh, kw = (ksize, ksize) if isinstance(ksize, int) else ksize
+    fan_in = (in_ch // groups) * kh * kw
     bound = math.sqrt(1.0 / fan_in)
     p = {"w": rng.uniform(-bound, bound,
-                          (ksize, ksize, in_ch // groups, out_ch)).astype(np.float32)}
+                          (kh, kw, in_ch // groups, out_ch)).astype(np.float32)}
     if bias:
         p["b"] = rng.uniform(-bound, bound, (out_ch,)).astype(np.float32)
     return p
@@ -78,3 +82,22 @@ def host_pipeline_params(seed=0, in_ch=7):
         "warpnet": host_warpnet_init(seed + 1),
         "colorvid": host_colorvidnet_init(seed + 2, in_ch),
     }
+
+
+def _l2n(v):
+    return (v / (np.linalg.norm(v) + 1e-12)).astype(np.float32)
+
+
+def host_discriminator_init(seed=3, in_size=6, ndf=64):
+    """(params, sn_state) of the critic in devc_tpu's layout (HWIO convs
+    with bias, gamma [1] = 0; u [out] and v [in * kh * kw], unit vectors).
+    Per layer in order: the conv's weight and bias, then u and v."""
+    rng = np.random.RandomState(seed)
+    params = {"gamma": np.zeros((1,), np.float32)}
+    sn_state = {}
+    for name, (_path, ci, co, kh, kw, _s, _p) in layer_table(in_size,
+                                                              ndf).items():
+        params[name] = _conv(rng, ci, co, (kh, kw))
+        sn_state[name] = {"u": _l2n(rng.randn(co)),
+                          "v": _l2n(rng.randn(ci * kh * kw))}
+    return params, sn_state

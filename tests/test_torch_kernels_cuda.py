@@ -1,5 +1,6 @@
-"""CUDA kernels K1 (fused correspondence) and K2 (PCR tridiagonal solve)
-vs their plain PyTorch versions on the card. Needs no JAX.
+"""CUDA kernels K1 (fused correspondence), K2 (PCR tridiagonal solve) and
+the correspondence backward kernels K2b/K3 vs their plain PyTorch versions
+on the card. Needs no JAX.
 
 Every test here needs an NVIDIA GPU and nvcc (a CUDA kernel has no CPU
 mode) and is skipped without one. Run them on the card with
@@ -10,7 +11,10 @@ Tolerances: sim is a max of fp32 dot products summed in another order
 (1e-5). At T = 0.01 out is a softmax average of values in +-100 (1e-3).
 At T = 1e-10 out is an exact argmax-average; a row whose two best scores
 differ by less than the summation-order round-off may pick another key,
-so a few rows per thousand may differ, and the rest must match.
+so a few rows per thousand may differ, and the rest must match. The
+backward kernels are held to devc_tpu's own bound for its Pallas VJP
+against einsum autodiff (tests/test_pallas_grad.py: atol 5e-3, rtol 1e-3);
+their inputs are random unit vectors, which leave no exact ties.
 """
 
 import numpy as np
@@ -19,7 +23,11 @@ import torch
 
 from devc_tpu_torch.ops import cuda_corr
 from devc_tpu_torch.ops import fgs
-from devc_tpu_torch.ops.correspondence import correspondence_warp_einsum
+from devc_tpu_torch.ops.correspondence import (
+    correspondence_bwd_plain,
+    correspondence_warp,
+    correspondence_warp_einsum,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -174,3 +182,90 @@ def test_frame_on_card_matches_golden(cuda):
     np.testing.assert_allclose(warped.cpu().numpy(), data["warped"], atol=5e-2)
     np.testing.assert_allclose(pred_ab.cpu().numpy(), data["pred_ab"],
                                atol=5e-2)
+
+
+def _bwd_case(b, nq, nk, c, device, seed=0):
+    """K1's residuals and random cotangents for a backward call."""
+    theta, phi, values = _corr_inputs(b, nq, nk, c, device, seed)
+    values = values / 2  # Lab-like payload in +-50, as test_pallas_grad.py
+    out, sim, l = cuda_corr.corr_fwd(theta, phi, values, 0.01, emit_l=True)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+    d_out = torch.randn(b, nq, 3, generator=gen).to(device)
+    d_sim = torch.randn(b, nq, 1, generator=gen).to(device)
+    return theta, phi, values, sim, l, out, d_out, d_sim
+
+
+# aligned, ragged (both sides, tiles of 64), batched, one sample at the
+# training N (the reduction axis split across blocks), and C = 64
+@pytest.mark.parametrize("b,nq,nk,c", [(1, 256, 256, 256), (1, 200, 312, 256),
+                                       (3, 130, 70, 256), (1, 5184, 5184, 256),
+                                       (2, 33, 65, 64), (1, 1, 1, 256)])
+def test_corr_bwd_matches_plain(cuda, b, nq, nk, c):
+    args = _bwd_case(b, nq, nk, c, cuda)
+    dq, dkv = cuda_corr.corr_bwd_dq.launches, cuda_corr.corr_bwd_dkv.launches
+    got = cuda_corr.corr_bwd(*args, 0.01)
+    torch.cuda.synchronize()
+    assert (cuda_corr.corr_bwd_dq.launches, cuda_corr.corr_bwd_dkv.launches) \
+        == (dq + 1, dkv + 1)
+    want = correspondence_bwd_plain(*args, 0.01)
+    for name, g, w in zip(("dtheta", "dphi", "dvalues"), got, want):
+        assert g.shape == w.shape, name
+        torch.testing.assert_close(g, w, atol=5e-3, rtol=1e-3, msg=name)
+
+
+@pytest.mark.parametrize("b,n", [(1, 5184), (2, 300)])
+def test_corr_bwd_routes_dsim_to_the_row_max(cuda, b, n):
+    """With d_out = 0 and d_sim = 1, df is 1 exactly where the recomputed
+    score equals K1's saved max: dtheta_i = phi at row i's argmax and dphi_k
+    = the sum of theta over the rows whose argmax is k. A score formed in
+    another order than K1's would miss the max and leave zeros."""
+    theta, phi, values, sim, l, out, _, _ = _bwd_case(b, n, n, 256, cuda)
+    d_out = torch.zeros_like(out)
+    d_sim = torch.ones_like(sim)
+    dtheta, dphi, _ = cuda_corr.corr_bwd(theta, phi, values, sim, l, out,
+                                         d_out, d_sim, 0.01)
+    arg = torch.bmm(theta, phi.transpose(1, 2)).argmax(dim=-1)  # [B, N]
+    want_dtheta = torch.gather(phi, 1, arg[..., None].expand(-1, -1, 256))
+    assert (dtheta - want_dtheta).abs().amax().item() <= 1e-6
+    want_dphi = torch.zeros_like(phi)
+    for i in range(b):
+        want_dphi[i].index_add_(0, arg[i], theta[i])
+    torch.testing.assert_close(dphi, want_dphi, atol=1e-5, rtol=1e-5)
+
+
+def test_correspondence_warp_is_differentiable_on_card(cuda):
+    """Under autograd the dispatch goes through CorrFunction: outputs carry
+    a grad_fn, the backward launches K2b and K3 once each, and the
+    gradients match autograd of the plain version."""
+    theta, phi, values = _corr_inputs(2, 200, 312, 256, cuda)
+    values = values / 2
+    leaves = [t.clone().requires_grad_(True) for t in (theta, phi, values)]
+    out, sim = correspondence_warp(*leaves, 0.01, differentiable=True)
+    assert out.grad_fn is not None and sim.grad_fn is not None
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    d_out = torch.randn(out.shape, generator=gen).to(cuda)
+    d_sim = torch.randn(sim.shape, generator=gen).to(cuda)
+    dq, dkv = cuda_corr.corr_bwd_dq.launches, cuda_corr.corr_bwd_dkv.launches
+    got = torch.autograd.grad((out * d_out).sum() + (sim * d_sim).sum(), leaves)
+    assert (cuda_corr.corr_bwd_dq.launches, cuda_corr.corr_bwd_dkv.launches) \
+        == (dq + 1, dkv + 1)
+    ref = [t.clone().requires_grad_(True) for t in (theta, phi, values)]
+    w_out, w_sim = correspondence_warp_einsum(*ref, 0.01)
+    want = torch.autograd.grad((w_out * d_out).sum() + (w_sim * d_sim).sum(),
+                               ref)
+    for name, g, w in zip(("dtheta", "dphi", "dvalues"), got, want):
+        torch.testing.assert_close(g, w, atol=5e-3, rtol=1e-3, msg=name)
+
+
+def test_kernel_paths_refuse_inputs_that_need_grad(cuda):
+    """corr_fwd's outputs have no grad_fn, so it raises on inputs that
+    require grad; the dispatch raises too unless differentiable=True."""
+    theta, phi, values = _corr_inputs(1, 64, 64, 256, cuda)
+    theta.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        cuda_corr.corr_fwd(theta, phi, values, 0.01)
+    with pytest.raises(RuntimeError, match="differentiable=True"):
+        correspondence_warp(theta, phi, values, 0.01)
+    with torch.no_grad():
+        out, _, _ = cuda_corr.corr_fwd(theta, phi, values, 0.01)
+    assert out.grad_fn is None
