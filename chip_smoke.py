@@ -11,10 +11,13 @@ line {"ok": true, "device": {...}}:
                limit). No GPU: exit 1.
   2. build     the CUDA kernels from devc_tpu_torch/csrc/ (one nvcc per
                source, all at once, sm_90a).
-  3. kernels   K1 (fused correspondence) and K2 (PCR tridiagonal solve) vs
-               their plain PyTorch versions on the card at the main path's
-               shapes: errors and median CUDA-event times of both, and of
-               one PyTorch call computing K1's out (SDPA) as a yardstick.
+  3. kernels   K1 (fused correspondence) at N = 5184 and 20736 (B = 1,
+               inference) and at the training shape (B = 16, N = 5184),
+               and K2's two entries (the fused smoother pass at the four
+               frame-pass shapes; the general tridiagonal solve at four
+               [B, L] shapes) vs their plain PyTorch versions on the card:
+               errors and median CUDA-event times of both, and of one
+               PyTorch call computing K1's out (SDPA) as a yardstick.
   4. bwd       K2b / K3 (the correspondence backward, corr_bwd_dq /
                corr_bwd_dkv) vs their plain version at the training shape
                (B = 16, N = 5184, C = 256, T = 0.01) and at B = 1: errors,
@@ -25,7 +28,8 @@ line {"ok": true, "device": {...}}:
   6. main      colorize_frames on 8 textured 432x768 frames with seeded
                random weights at full model width, fp32, T = 1e-10, WLS on:
                outputs checked, kernel launch counts checked (K1 once and
-               K2 six times per frame), per-frame ms from CUDA events.
+               K2's smoother pass six times per frame), per-frame ms from
+               CUDA events.
   7. layers    one frame's stages timed one by one with CUDA events.
   8. cli       python -m devc_tpu_torch.cli.colorize on the frames written
                as PNGs, when Pillow is installed (else says it skipped).
@@ -64,8 +68,16 @@ N_FRAMES = 8
 # K1 at the correspondence sizes of the two reference resolutions
 # (432x768 -> N = 54*96 = 5184; 864x1536 -> N = 108*192 = 20736)
 K1_SIZES = (5184, 20736)
-# K2 at the smoother's (L, B) for row / column passes at both resolutions
+# K1 at the training shape: batch 16 of 216x384 (N = 5184), T = 0.01
+K1_TRAIN = (16, 5184)
+# K2's smoother pass: (H, W, axis) of the row (1) and column (0) passes of
+# a frame at both resolutions
+K2_PASSES = ((432, 768, 1), (432, 768, 0), (864, 1536, 1), (864, 1536, 0))
+# K2's general solve at the (L, B) those passes solved as [B, L] systems
+# before the fusion (one system per row or column and channel)
 K2_SHAPES = ((768, 864), (432, 1536), (1536, 1728), (864, 3072))
+# the smoother's first, largest lambda (lambda_1 = 1.5 * 500 * 16 / 63)
+FGS_LAM = 1.5 * 500.0 * 16.0 / 63.0
 # training: cli/train.py's defaults, --batch_size 16 --image_size 216 384
 TRAIN_B, TRAIN_HW = 16, (216, 384)
 TRAIN_N = (TRAIN_HW[0] // 4) * (TRAIN_HW[1] // 4)  # 5184 positions
@@ -102,9 +114,13 @@ def textured_frames(seed: int, n: int, hw):
     return out
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+def cuda_ms(fn, reps: int = 10, warmup: int = 2, queued: bool = False) -> float:
     """Median milliseconds of fn() over reps, each bracketed by CUDA
-    events on the current stream."""
+    events on the current stream. With queued, the card first spins for
+    about a millisecond (torch.cuda._sleep), so the host has enqueued fn's
+    launches before the start event runs: the events then time the
+    device's work alone, not the host's launch cost (which dominates a
+    call of a few microseconds on the card)."""
     import torch
 
     for _ in range(warmup):
@@ -114,6 +130,8 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(2_000_000)  # clock cycles
         start.record()
         fn()
         end.record()
@@ -130,30 +148,36 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def phase_kernels(seed: int):
-    """K1 and K2 vs their plain versions on the card. Returns the
-    per-kernel summary (without launch counts)."""
+def _k1_inputs(rng, b, n, dev):
+    """Unit-norm theta, phi [b, n, 256] and a network-Lab payload (L in
+    [-50, 50], ab in [-100, 100]) on the card."""
     import numpy as np
     import torch
 
-    from devc_tpu_torch.ops import fgs
+    theta, phi = unit_rows(rng, b, n, 256), unit_rows(rng, b, n, 256)
+    values = (rng.rand(b, n, 3).astype(np.float32) - 0.5) * \
+        np.array([100, 200, 200], np.float32)
+    return [torch.from_numpy(x).to(dev) for x in (theta, phi, values)]
+
+
+def _k1_cases(rng, dev):
+    """K1 against its plain version at each shape; returns one summary per
+    shape (ms, plain and library ms, bound, launches of its own test)."""
+    import torch
+
     from devc_tpu_torch.ops.correspondence import correspondence_warp_einsum
     from devc_tpu_torch.ops.cuda_corr import corr_fwd
 
-    dev = torch.device("cuda")
-    rng = np.random.RandomState(seed)
-    k1 = {"max_abs_err": 0.0}
-    for n in K1_SIZES:
-        theta = rng.randn(1, n, 256).astype(np.float32)
-        theta /= np.linalg.norm(theta, axis=-1, keepdims=True)
-        phi = rng.randn(1, n, 256).astype(np.float32)
-        phi /= np.linalg.norm(phi, axis=-1, keepdims=True)
-        # network-Lab payload: L in [-50, 50], ab in [-100, 100]
-        values = (rng.rand(1, n, 3).astype(np.float32) - 0.5) * \
-            np.array([100, 200, 200], np.float32)
-        theta, phi, values = (torch.from_numpy(x).to(dev)
-                              for x in (theta, phi, values))
-        for temperature in (0.01, 1e-10):
+    shapes = [(1, n, (0.01, 1e-10)) for n in K1_SIZES] + [
+        (K1_TRAIN[0], K1_TRAIN[1], (0.01,))]
+    rows = []
+    for b, n, temps in shapes:
+        theta, phi, values = _k1_inputs(rng, b, n, dev)
+        flop = 2 * b * n * n * 259
+        # theta, phi, values read once; out, sim, l written once
+        nbytes = 4 * b * n * (2 * 256 + 3 + 5)
+        row = {"b": b, "n": n, "c": 256, "max_abs_err": 0.0}
+        for temperature in temps:
             out, sim, l = corr_fwd(theta, phi, values, temperature,
                                    emit_l=True)
             want_out, want_sim = correspondence_warp_einsum(
@@ -162,7 +186,7 @@ def phase_kernels(seed: int):
             sim_err = (sim - want_sim).abs().max().item()
             row_err = (out - want_out).abs().amax(dim=-1)
             out_err = row_err.max().item()
-            case = {"kernel": "corr_fwd", "n": n, "c": 256,
+            case = {"kernel": "corr_fwd", "b": b, "n": n, "c": 256,
                     "temperature": temperature, "sim_max_abs_err": sim_err,
                     "out_max_abs_err": out_err,
                     "l_min": l.min().item()}
@@ -176,7 +200,7 @@ def phase_kernels(seed: int):
                 # the bound devc_tpu's tests hold its Pallas kernel to
                 # against the einsum path (tests/test_pallas_corr.py)
                 assert out_err <= 1e-3, case
-                k1["max_abs_err"] = max(k1["max_abs_err"], out_err, sim_err)
+                row["max_abs_err"] = max(row["max_abs_err"], out_err, sim_err)
             else:
                 # T = 1e-10 is an exact argmax-average; a row whose two
                 # best scores differ by less than the summation-order
@@ -185,24 +209,72 @@ def phase_kernels(seed: int):
                 flipped = (row_err > 1e-4).float().mean().item()
                 case["rows_differing"] = flipped
                 assert flipped <= 1e-3, case
-                k1["max_abs_err"] = max(k1["max_abs_err"], sim_err)
-                case["ms"] = cuda_ms(lambda: corr_fwd(theta, phi, values,
-                                                      temperature))
-                case["plain_ms"] = cuda_ms(lambda: correspondence_warp_einsum(
-                    theta, phi, values, temperature))
-                case["gflop_per_s"] = 2 * n * n * 259 / case["ms"] / 1e6
-                # theta, phi, values read once; out, sim, l written once
-                case.update(bound(2 * n * n * 259, 4 * n * (2 * 256 + 3 + 5)))
-                if n == K1_SIZES[0]:
-                    k1["ms"], k1["plain_ms"] = case["ms"], case["plain_ms"]
-                    k1.update(bound(2 * n * n * 259, 4 * n * (2 * 256 + 3 + 5)))
-                    k1["library_ms"], k1["library_call"] = sdpa_ms(
-                        theta, phi, values, 0.01)
-            emit("kernels", **case)
+                row["max_abs_err"] = max(row["max_abs_err"], sim_err)
             del out, sim, l, want_out, want_sim
+            # timed at the path's temperature: 1e-10 for inference, 0.01
+            # for training
+            if temperature == temps[-1]:
+                case["ms"] = cuda_ms(lambda: corr_fwd(
+                    theta, phi, values, temperature), queued=True)
+                case["plain_ms"] = cuda_ms(lambda: correspondence_warp_einsum(
+                    theta, phi, values, temperature), queued=True)
+                case["library_ms"], case["library_call"] = sdpa_ms(
+                    theta, phi, values, temperature)
+                case["gflop_per_s"] = flop / case["ms"] / 1e6
+                case.update(bound(flop, nbytes))
+                row.update({k: case[k] for k in (
+                    "temperature", "ms", "plain_ms", "library_ms",
+                    "library_call", "gflop_per_s", "bound_ms", "bound_by")})
+            emit("kernels", **case)
+            torch.cuda.empty_cache()
+        rows.append(row)
+        del theta, phi, values
+        torch.cuda.empty_cache()
+    return rows
 
-    k2 = {"max_abs_err": 0.0}
-    lam = 1.5 * 500.0 * 16.0 / 63.0  # the smoother's first, largest lambda
+
+def _k2_cases(rng, dev):
+    """K2's smoother pass and general solve against their plain versions;
+    returns (pass summaries, solve summaries)."""
+    import numpy as np
+    import torch
+
+    from devc_tpu_torch.ops import fgs
+
+    passes = []
+    for h, w, axis in K2_PASSES:
+        src = ((rng.rand(h, w, 2) - 0.5) * 200).astype(np.float32)  # ab
+        guide = np.floor(rng.rand(h, w) * 256).astype(np.float32)  # uint8
+        guide[:, w // 2:] = np.floor(guide[:, w // 2:] / 8)  # an edge
+        src, guide = (torch.from_numpy(x).to(dev) for x in (src, guide))
+        x = fgs.smooth_pass(src, guide, FGS_LAM, fgs.SIGMA_COLOR, axis)
+        want = fgs.smooth_pass_plain(src, guide, FGS_LAM, fgs.SIGMA_COLOR,
+                                     axis)
+        torch.cuda.synchronize()
+        err = (x - want).abs()
+        scale = want.abs().max().item()
+        case = {"kernel": "smooth_pass", "h": h, "w": w, "axis": axis,
+                "max_abs_err": err.max().item(),
+                "max_rel_err": err.max().item() / scale}
+        # rtol 1e-4; the atol of 1e-5 of the largest |x| covers entries
+        # that cross zero, where a relative bound means nothing
+        assert bool((err <= 1e-4 * want.abs() + 1e-5 * scale).all()), case
+        case["ms"] = cuda_ms(lambda: fgs.smooth_pass(
+            src, guide, FGS_LAM, fgs.SIGMA_COLOR, axis), queued=True)
+        case["plain_ms"] = cuda_ms(lambda: fgs.smooth_pass_plain(
+            src, guide, FGS_LAM, fgs.SIGMA_COLOR, axis), queued=True)
+        # the same launch timed with the host's cost in it
+        case["host_incl_ms"] = cuda_ms(lambda: fgs.smooth_pass(
+            src, guide, FGS_LAM, fgs.SIGMA_COLOR, axis))
+        # src and guide read once, the result written once (20 B a pixel);
+        # per pixel two weights (exp), three coefficients and the solve of
+        # two right-hand sides: about 30 FLOP
+        case.update(bound(30 * h * w, 20 * h * w))
+        case["gb_per_s"] = 20 * h * w / case["ms"] / 1e6
+        emit("kernels", **case)
+        passes.append(case)
+
+    solves = []
     for length, n_sys in K2_SHAPES:
         guide = np.floor(rng.rand(n_sys, length) * 256)
         guide[:, length // 2:] //= 8  # an edge in every system
@@ -210,12 +282,14 @@ def phase_kernels(seed: int):
         zeros = np.zeros((n_sys, 1))
         w_left = np.concatenate([zeros, wgt], axis=1)
         w_right = np.concatenate([wgt, zeros], axis=1)
-        a, b, c = -lam * w_left, 1.0 + lam * (w_left + w_right), -lam * w_right
+        a, b = -FGS_LAM * w_left, 1.0 + FGS_LAM * (w_left + w_right)
+        c = -FGS_LAM * w_right
         d = (rng.rand(n_sys, length) - 0.5) * 200  # ab-like right-hand sides
         a, b, c, d = (torch.from_numpy(x.astype(np.float32)).to(dev)
                       for x in (a, b, c, d))
         x = fgs.tridiag_pcr(a, b, c, d)
-        case = {"kernel": "tridiag_pcr", "L": length, "B": n_sys}
+        case = {"kernel": "tridiag_pcr", "L": length, "B": n_sys,
+                "max_abs_err": 0.0}
         for name, plain in (("pcr", fgs._tridiag_pcr),
                             ("thomas", fgs._tridiag_thomas)):
             want = plain(a, b, c, d)
@@ -224,22 +298,49 @@ def phase_kernels(seed: int):
             scale = want.abs().max().item()
             case[f"vs_{name}_max_abs_err"] = err.max().item()
             case[f"vs_{name}_max_rel_err"] = err.max().item() / scale
-            # rtol 1e-4; the atol of 1e-5 of the largest |x| covers entries
-            # that cross zero, where a relative bound means nothing
             assert bool((err <= 1e-4 * want.abs() + 1e-5 * scale).all()), case
-            k2["max_abs_err"] = max(k2["max_abs_err"], err.max().item())
-        case["ms"] = cuda_ms(lambda: fgs.tridiag_pcr(a, b, c, d))
-        case["plain_ms"] = cuda_ms(lambda: fgs._tridiag_pcr(a, b, c, d))
+            case["max_abs_err"] = max(case["max_abs_err"], err.max().item())
+        case["ms"] = cuda_ms(lambda: fgs.tridiag_pcr(a, b, c, d), queued=True)
+        case["plain_ms"] = cuda_ms(lambda: fgs._tridiag_pcr(a, b, c, d),
+                                   queued=True)
         case["gb_per_s"] = 20 * length * n_sys / case["ms"] / 1e6
-        if (length, n_sys) == K2_SHAPES[0]:
-            k2["ms"], k2["plain_ms"] = case["ms"], case["plain_ms"]
-            # a, b, c, d read and x written once; Thomas's 8 FLOP per unknown
-            k2.update(bound(8 * length * n_sys, 20 * length * n_sys))
-            k2["library_ms"] = None
-            k2["library_call"] = ("none: PyTorch has no batched tridiagonal "
-                                  "solve (a banded or dense solve would be "
-                                  "another algorithm on O(L^2) data)")
+        # a, b, c, d read and x written once; Thomas's 8 FLOP per unknown
+        case.update(bound(8 * length * n_sys, 20 * length * n_sys))
         emit("kernels", **case)
+        solves.append(case)
+    return passes, solves
+
+
+def phase_kernels(seed: int):
+    """K1 and K2 vs their plain versions on the card. Returns the
+    per-kernel summaries (without launch counts): K1's at the inference
+    shape with every shape under `by_shape`, and K2's with its two
+    entries."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed)
+    k1_rows = _k1_cases(rng, dev)
+    k1 = dict(k1_rows[0], max_abs_err=max(r["max_abs_err"] for r in k1_rows),
+              by_shape=k1_rows)
+    passes, solves = _k2_cases(rng, dev)
+    none = ("none: PyTorch has no batched tridiagonal solve (a banded or "
+            "dense solve would be another algorithm on O(L^2) data)")
+    pick = lambda c: {k: c[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")}
+    smooth = {"name": "smooth_pass", "max_abs_err": max(
+        c["max_abs_err"] for c in passes), **pick(passes[0]),
+        "shape": "432x768 row pass", "library_ms": None, "library_call": none,
+        "by_shape": [{"h": c["h"], "w": c["w"], "axis": c["axis"], **pick(c)}
+                     for c in passes]}
+    solve = {"name": "tridiag_pcr", "max_abs_err": max(
+        c["max_abs_err"] for c in solves), **pick(solves[0]),
+        "shape": "(L, B) = (768, 864)", "library_ms": None,
+        "library_call": none,
+        "by_shape": [{"L": c["L"], "B": c["B"], **pick(c)} for c in solves]}
+    k2 = {k: v for k, v in smooth.items() if k != "name"}
+    k2["entries"] = [smooth, solve]
     return k1, k2
 
 
@@ -261,7 +362,8 @@ def sdpa_ms(theta, phi, values, temperature):
                 call()
             except RuntimeError:
                 continue
-            return cuda_ms(call), f"F.scaled_dot_product_attention ({backend.name})"
+            return (cuda_ms(call, queued=True),
+                    f"F.scaled_dot_product_attention ({backend.name})")
     raise RuntimeError("no SDPA backend ran")
 
 
@@ -415,6 +517,7 @@ def phase_main(models, seed: int, card: str):
 
     torch.cuda.reset_peak_memory_stats()
     cuda_corr.corr_fwd.launches = 0
+    fgs.smooth_pass.launches = 0
     fgs.tridiag_pcr.launches = 0
     t0 = time.perf_counter()
     n = colorize_frames(models, frames, ref, temperature=1e-10, wls=True,
@@ -422,6 +525,7 @@ def phase_main(models, seed: int, card: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"corr_fwd": cuda_corr.corr_fwd.launches,
+                "smooth_pass": fgs.smooth_pass.launches,
                 "tridiag_pcr": fgs.tridiag_pcr.launches}
 
     assert n == N_FRAMES and len(outs) == N_FRAMES, n
@@ -430,8 +534,10 @@ def phase_main(models, seed: int, card: str):
     chroma = max(int(np.abs(o[..., 0].astype(int) - o[..., 1]).max())
                  for o in outs)
     assert chroma > 3, "outputs are gray: no chroma was added"
-    assert launches == {"corr_fwd": N_FRAMES,
-                        "tridiag_pcr": 6 * N_FRAMES}, launches
+    # K1 once and K2's smoother pass six times per frame; the general
+    # solve is not on the path
+    assert launches == {"corr_fwd": N_FRAMES, "smooth_pass": 6 * N_FRAMES,
+                        "tridiag_pcr": 0}, launches
     # frame-to-frame intervals on the stream, first frame excluded
     per_frame = [events[i - 1].elapsed_time(events[i])
                  for i in range(1, len(events))]
@@ -462,7 +568,7 @@ def phase_layers(models, ref, rgb, card: str):
     dev = models.device
     rgb_t = torch.from_numpy(rgb).to(dev)
     _, state = video._device_ref_features(models, torch.from_numpy(ref).to(dev))
-    times = {}
+    times, device_ms = {}, {}
     with torch.inference_mode():
         lab_large, lab_small = video._preprocess_device(rgb_t)
         a_l = lab_small[..., 0:1]
@@ -492,6 +598,9 @@ def phase_layers(models, ref, rgb, card: str):
             lambda: video._resize_nhwc(ab, (H, W)) * 1.25, 5)
         times["fgs_k2"] = cuda_ms(
             lambda: fast_global_smoother(ab_up[0], guide), 5)
+        # the six launches' device time, the host's launch cost left out
+        device_ms["fgs_k2"] = cuda_ms(
+            lambda: fast_global_smoother(ab_up[0], guide), 5, queued=True)
         times["lab_to_rgb_u8"] = cuda_ms(lambda: torch.floor(torch.clamp(
             cs.lab_centered_to_rgb(torch.cat([lab_large[..., 0:1], ab_up],
                                              dim=-1)), 0, 1) * 255).to(
@@ -500,7 +609,8 @@ def phase_layers(models, ref, rgb, card: str):
     times["frame_step"] = cuda_ms(lambda: video.frame_step(
         models, rgb_t, last, state), 5)
     emit("layers", ms=times, sum_of_stages_ms=sum(
-        v for k, v in times.items() if k != "frame_step"), card=card)
+        v for k, v in times.items() if k != "frame_step"),
+        device_only_ms=device_ms, card=card)
 
 
 def phase_cli(frames, ref, seed: int, main_outs):
@@ -907,8 +1017,11 @@ def main(argv=None) -> int:
     # with the counts at 0 (inference main path, training main path)
     by_path = lambda name: {"main": launches.get(name, 0),
                             "train": train.get(name, 0)}
+    for entry in k2["entries"]:  # K2's two entries, each with its counts
+        entry["launches_by_path"] = by_path(entry["name"])
+        entry["launches"] = sum(entry["launches_by_path"].values())
     rows = [("corr_fwd", "corr_fwd.cu", "devc_tpu/ops/pallas_corr.py:80", k1),
-            ("tridiag_pcr", "tridiag_pcr.cu", "devc_tpu/ops/fgs.py:68", k2),
+            ("smooth_pass", "tridiag_pcr.cu", "devc_tpu/ops/fgs.py:68", k2),
             ("corr_bwd_dq", "corr_bwd.cu", "devc_tpu/ops/pallas_corr.py:218",
              bwd["corr_bwd_dq"]),
             ("corr_bwd_dkv", "corr_bwd.cu", "devc_tpu/ops/pallas_corr.py:246",

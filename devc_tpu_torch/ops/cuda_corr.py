@@ -29,17 +29,27 @@ from devc_tpu_torch.ops.correspondence import (
 )
 from devc_tpu_torch.utils.build import check, load_kernels
 
-_TQ, _TK = 64, 128  # K1's query rows per block and keys per tile
+_TQ, _TK = 128, 128  # K1's query rows per block and keys per tile
 _TB = 64  # the backward kernels' rows per tile, both sides
-_BLOCKS_PER_SM = 3  # what fits an SM at the kernel's register use
+_MAX_SPLITS = 8  # K1 reloads its query tile once per key range
 
 
 def _key_splits(b: int, nq: int, nk: int, device) -> int:
-    """Key ranges per query tile: enough blocks for about _BLOCKS_PER_SM
-    on every SM (few query tiles at N = 5184), never an empty range."""
+    """Key ranges per query tile for K1, which runs one block per SM: the
+    count (at most _MAX_SPLITS) whose waves of blocks take the fewest key
+    tiles per SM, the smaller on a tie (few query tiles at N = 5184 leave
+    most SMs idle without a split)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     q_blocks = b * -(-nq // _TQ)
-    return max(1, min(-(-nk // _TK), -(-_BLOCKS_PER_SM * sms // q_blocks)))
+    tiles = -(-nk // _TK)
+    best, best_cost = 1, None
+    for s in range(1, min(_MAX_SPLITS, tiles) + 1):
+        per_split = -(-tiles // s)
+        splits = -(-tiles // per_split)  # as the kernel rounds them
+        cost = -(-q_blocks * splits // sms) * per_split
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
 
 
 def _check_input(name, t, shape, fn="corr_fwd", device=None):

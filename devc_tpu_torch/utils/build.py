@@ -37,6 +37,9 @@ _SIGNATURES = {
     "devc_corr_fwd": ([_P] * 7 + [_I] * 5 + [ctypes.c_float, _P], _I),
     # a, b, c, d, x, n_sys, len, stream
     "devc_tridiag_pcr": ([_P] * 5 + [_I, _I, _P], _I),
+    # src, guide, out, h, w, axis, lam, sigma, stream
+    "devc_smooth_pass": ([_P] * 3 + [_I] * 3 + [ctypes.c_float] * 2 + [_P],
+                         _I),
     # theta, phi, values, m, l, dd, dsim, dout, dtheta, part, batch, nq, nk,
     # c, splits, inv_t, stream
     "devc_corr_bwd_dq": ([_P] * 10 + [_I] * 5 + [ctypes.c_float, _P], _I),

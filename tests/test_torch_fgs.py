@@ -1,10 +1,12 @@
-"""The port's fast global smoother and its plain tridiagonal solvers (the
-plain versions of kernel K2) vs devc_tpu on CPU.
+"""The port's fast global smoother, its plain smoother pass and its plain
+tridiagonal solvers (the plain versions of kernel K2's two entries) vs
+devc_tpu on CPU.
 
 The systems are diagonally dominant, so PCR and Thomas are well
 conditioned: both sides solve the same fp32 systems with another order of
-operations, held at 2e-4 (the bound devc_tpu's own solver tests use). The
-smoother works on ab values of +-100 through 6 solves, held at 2e-3.
+operations, held at 2e-4 (the bound devc_tpu's own solver tests use); one
+smoother pass is held to the same bound. The smoother works on ab values
+of +-100 through 6 passes, held at 2e-3.
 """
 
 import jax.numpy as jnp
@@ -39,19 +41,66 @@ def test_plain_solvers_match_pallas_pcr(rng, length, n_sys, solver):
     np.testing.assert_allclose(got.numpy().T, want, atol=2e-4)
 
 
-@pytest.mark.parametrize("hw", [(48, 96), (64, 128)])
+def _frame(rng, hw):
+    """ab-like src in +-100 and a uint8-truncated luminance guide, as
+    pipeline/video.py::frame_step builds it, with an edge down the middle."""
+    src = ((rng.rand(*hw, 2) - 0.5) * 200).astype(np.float32)
+    lum = rng.rand(*hw) * 100.0  # L in [0, 100]
+    guide = np.clip(np.floor(lum * 255.0 / 100.0), 0, 255).astype(np.float32)
+    guide[:, hw[1] // 2:] = np.floor(guide[:, hw[1] // 2:] / 8)
+    return src, guide
+
+
+@pytest.mark.parametrize("hw", [(48, 96), (64, 128), (37, 70)])
 def test_fast_global_smoother_matches_devc_tpu(rng, hw):
     src = ((rng.rand(*hw, 2) - 0.5) * 200).astype(np.float32)
     guide = np.floor(rng.rand(*hw) * 256).clip(0, 255).astype(np.float32)
     guide[:, hw[1] // 2:] = np.floor(guide[:, hw[1] // 2:] / 8)  # an edge
     want = np.asarray(jfgs.fast_global_smoother(
         jnp.asarray(src), jnp.asarray(guide), solver="pcr"))
-    before = tfgs.tridiag_pcr.launches
+    before = (tfgs.tridiag_pcr.launches, tfgs.smooth_pass.launches)
     got = tfgs.fast_global_smoother(torch.from_numpy(src),
                                     torch.from_numpy(guide))
-    assert tfgs.tridiag_pcr.launches == before  # CPU: plain path only
+    # CPU: plain path only
+    assert (tfgs.tridiag_pcr.launches, tfgs.smooth_pass.launches) == before
     assert got.shape == (*hw, 2)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-3)
+
+
+# the first (largest) and last lambda of the smoother's three iterations
+@pytest.mark.parametrize("lam_t", [1.5 * 500.0 * 16.0 / 63.0,
+                                   1.5 * 500.0 / 63.0])
+@pytest.mark.parametrize("hw", [(37, 70), (48, 96)])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_smooth_pass_plain_matches_devc_tpu(rng, hw, axis, lam_t):
+    """One pass (K2's fused entry, plain version on CPU) against devc_tpu's
+    `_smooth_axis`: axis 1 along the rows, axis 0 along the columns (the
+    smoother's transposed call)."""
+    src, guide = _frame(rng, hw)
+    if axis == 1:
+        want = jfgs._smooth_axis(jnp.asarray(src), jnp.asarray(guide), lam_t,
+                                 4.0, "pcr")
+    else:
+        want = jnp.transpose(jfgs._smooth_axis(
+            jnp.transpose(jnp.asarray(src), (1, 0, 2)), jnp.asarray(guide).T,
+            lam_t, 4.0, "pcr"), (1, 0, 2))
+    before = tfgs.smooth_pass.launches
+    got = tfgs.smooth_pass(torch.from_numpy(src), torch.from_numpy(guide),
+                           lam_t, 4.0, axis)
+    assert tfgs.smooth_pass.launches == before  # CPU: the plain version
+    assert got.shape == (*hw, 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
+
+
+def test_smooth_pass_refuses_what_it_cannot_run(rng):
+    """A bad axis, or tensors on no device it serves, raise; nothing
+    falls back."""
+    src, guide = _frame(rng, (8, 16))
+    src, guide = torch.from_numpy(src), torch.from_numpy(guide)
+    with pytest.raises(ValueError, match="axis"):
+        tfgs.smooth_pass(src, guide, 10.0, 4.0, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfgs.smooth_pass(src.to("meta"), guide.to("meta"), 10.0, 4.0, 1)
 
 
 def test_fast_global_smoother_matches_float64_oracle():

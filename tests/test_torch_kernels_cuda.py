@@ -1,6 +1,6 @@
-"""CUDA kernels K1 (fused correspondence), K2 (PCR tridiagonal solve) and
-the correspondence backward kernels K2b/K3 vs their plain PyTorch versions
-on the card. Needs no JAX.
+"""CUDA kernels K1 (fused correspondence), K2 (the smoother pass and the
+general tridiagonal solve) and the correspondence backward kernels K2b/K3
+vs their plain PyTorch versions on the card. Needs no JAX.
 
 Every test here needs an NVIDIA GPU and nvcc (a CUDA kernel has no CPU
 mode) and is skipped without one. Run them on the card with
@@ -12,6 +12,9 @@ Tolerances: sim is a max of fp32 dot products summed in another order
 At T = 1e-10 out is an exact argmax-average; a row whose two best scores
 differ by less than the summation-order round-off may pick another key,
 so a few rows per thousand may differ, and the rest must match. The
+smoother pass is held to K2's bound, rtol 1e-4 with an atol of 1e-5 of
+max|x| for entries that cross zero; the whole smoother (six passes) to
+2e-3 on values of +-100, the bound of its CPU test. The
 backward kernels are held to devc_tpu's own bound for its Pallas VJP
 against einsum autodiff (tests/test_pallas_grad.py: atol 5e-3, rtol 1e-3);
 their inputs are random unit vectors, which leave no exact ties.
@@ -75,6 +78,29 @@ def test_corr_fwd_matches_plain(cuda, b, nq, nk, temperature):
         assert bad.float().mean().item() <= 1e-3
 
 
+# N not a multiple of the 128-row / 128-key tiles; C = 32 and 64 (one and
+# two channel chunks per key tile); B > 1; C = 512 (above the resident
+# query tile's limit of 320: the queries stream through the ring too)
+@pytest.mark.parametrize("b,nq,nk,c", [(1, 1000, 1000, 32), (3, 130, 4500, 64),
+                                       (2, 257, 129, 256), (4, 129, 5184, 64),
+                                       (2, 300, 700, 512), (1, 5183, 5185, 256)])
+@pytest.mark.parametrize("temperature", [0.01, 1e-10])
+def test_corr_fwd_channels_batches_ragged(cuda, b, nq, nk, c, temperature):
+    theta, phi, values = _corr_inputs(b, nq, nk, c, cuda)
+    out, sim, l = cuda_corr.corr_fwd(theta, phi, values, temperature,
+                                     emit_l=True)
+    torch.cuda.synchronize()
+    want_out, want_sim = correspondence_warp_einsum(theta, phi, values,
+                                                    temperature)
+    torch.testing.assert_close(sim, want_sim, rtol=0, atol=1e-5)
+    assert bool((l >= 1.0).all())
+    if temperature == 0.01:
+        torch.testing.assert_close(out, want_out, rtol=0, atol=1e-3)
+    else:
+        bad = (out - want_out).abs().amax(dim=-1) > 1e-3
+        assert bad.float().mean().item() <= 1e-3
+
+
 @pytest.mark.parametrize("b,nq", [(1, 4), (8, 4096)])
 def test_corr_fwd_ties_average(cuda, b, nq):
     """Two exact maxima in different key tiles: in two key ranges merged
@@ -111,7 +137,8 @@ def _systems(length, n_sys, device, seed=0):
 
 
 @pytest.mark.parametrize("length,n_sys", [(768, 864), (432, 1536),
-                                          (1536, 1728), (1, 3), (257, 5)])
+                                          (1536, 1728), (1, 3), (257, 5),
+                                          (4096, 3)])
 def test_tridiag_pcr_matches_plain(cuda, length, n_sys):
     a, b, c, d = _systems(length, n_sys, cuda)
     before = fgs.tridiag_pcr.launches
@@ -124,9 +151,48 @@ def test_tridiag_pcr_matches_plain(cuda, length, n_sys):
                                    atol=1e-4 * want.abs().max().item())
 
 
+def _frame(hw, device, seed=0):
+    """ab-like src in +-100 and a uint8-truncated guide with an edge."""
+    rng = np.random.RandomState(seed)
+    src = ((rng.rand(*hw, 2) - 0.5) * 200).astype(np.float32)
+    guide = np.floor(rng.rand(*hw) * 256).astype(np.float32)
+    guide[:, hw[1] // 2:] = np.floor(guide[:, hw[1] // 2:] / 8)
+    return [torch.from_numpy(x).to(device) for x in (src, guide)]
+
+
+# the two reference resolutions and an odd size, both axes
+@pytest.mark.parametrize("hw", [(432, 768), (864, 1536), (37, 70)])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_smooth_pass_matches_plain(cuda, hw, axis):
+    src, guide = _frame(hw, cuda)
+    lam = 1.5 * 500.0 * 16.0 / 63.0  # the smoother's first, largest lambda
+    before = fgs.smooth_pass.launches
+    x = fgs.smooth_pass(src, guide, lam, 4.0, axis)
+    torch.cuda.synchronize()
+    assert fgs.smooth_pass.launches == before + 1
+    want = fgs.smooth_pass_plain(src, guide, lam, 4.0, axis)
+    assert x.shape == want.shape and x.is_contiguous()
+    torch.testing.assert_close(x, want, rtol=1e-4,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_fast_global_smoother_on_card(cuda):
+    """Six launches of the fused pass and no general solve; the result
+    against the plain smoother on the same inputs."""
+    src, guide = _frame((432, 768), cuda, seed=1)
+    before = (fgs.smooth_pass.launches, fgs.tridiag_pcr.launches)
+    got = fgs.fast_global_smoother(src, guide)
+    torch.cuda.synchronize()
+    assert (fgs.smooth_pass.launches - before[0],
+            fgs.tridiag_pcr.launches - before[1]) == (6, 0)
+    want = fgs.fast_global_smoother(src.cpu(), guide.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-3)
+
+
 def test_frame_step_on_card_matches_cpu(cuda):
-    """The device step on the card (K1 once, K2 six times) against the
-    same step on the CPU (plain versions), same weights and inputs."""
+    """The device step on the card (K1 once, K2's smoother pass six times)
+    against the same step on the CPU (plain versions), same weights and
+    inputs."""
     from devc_tpu_torch.pipeline import video
     from devc_tpu_torch.pipeline.frame import PipelineModels
     from devc_tpu_torch.utils.convert import state_dicts_from_numpy
@@ -142,12 +208,12 @@ def test_frame_step_on_card_matches_cpu(cuda):
         _, state = video._device_ref_features(
             models, torch.from_numpy(ref).to(dev))
         last = torch.zeros((1, 32, 64, 3), device=dev)
-        k1, k2 = cuda_corr.corr_fwd.launches, fgs.tridiag_pcr.launches
+        k1, k2 = cuda_corr.corr_fwd.launches, fgs.smooth_pass.launches
         out, new_last = video.frame_step(
             models, torch.from_numpy(rgb).to(dev), last, state,
             temperature=0.01)
         launched = (cuda_corr.corr_fwd.launches - k1,
-                    fgs.tridiag_pcr.launches - k2)
+                    fgs.smooth_pass.launches - k2)
         assert launched == ((1, 6) if dev == "cuda" else (0, 0))
         outs[dev] = (out.cpu().numpy().astype(int), new_last.cpu().numpy())
     assert np.abs(outs["cuda"][1] - outs["cpu"][1]).max() < 0.5
