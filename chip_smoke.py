@@ -18,10 +18,15 @@ line {"ok": true, "device": {...}}:
                [B, L] shapes) vs their plain PyTorch versions on the card:
                errors and median CUDA-event times of both, and of one
                PyTorch call computing K1's out (SDPA) as a yardstick.
-  4. bwd       K2b / K3 (the correspondence backward, corr_bwd_dq /
-               corr_bwd_dkv) vs their plain version at the training shape
-               (B = 16, N = 5184, C = 256, T = 0.01) and at B = 1: errors,
-               ms, GFLOP/s; and the sim-gradient routing check (d_out = 0,
+  4. bwd       K2b / K3 (the correspondence backward: K3 the one score
+               pass with dphi, K2b dtheta from its df scratch) vs their
+               plain version at the training shape (B = 16, N = 5184,
+               C = 256, T = 0.01), at B = 1, at C = 96 and 512 (ragged N)
+               and at B = 1, N = 20736: errors, a second call bit-equal, a
+               chunked run (4 chunks) bit-equal to one chunk, the df
+               scratch bytes; at N = 5184 ms of each kernel, of the pair
+               and of the plain backward, with each one's bound and the
+               pair's; and the sim-gradient routing check (d_out = 0,
                d_sim = 1: dtheta of every row is phi at the row's argmax).
   5. parity    one frame at a small size, teacher-forced, on the card
                (kernels) vs on the CPU (plain versions).
@@ -81,8 +86,10 @@ FGS_LAM = 1.5 * 500.0 * 16.0 / 63.0
 # training: cli/train.py's defaults, --batch_size 16 --image_size 216 384
 TRAIN_B, TRAIN_HW = 16, (216, 384)
 TRAIN_N = (TRAIN_HW[0] // 4) * (TRAIN_HW[1] // 4)  # 5184 positions
-# The H100 SXM's published peaks (fp32 outside the tensor cores; HBM3)
+# The H100 SXM's published peaks (fp32 outside the tensor cores, TF32 on
+# them; HBM3)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # dense, tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -374,9 +381,61 @@ def unit_rows(rng, *shape):
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
 
 
+def bwd_bounds(b: int, nq: int, nk: int, c: int) -> dict:
+    """Least times of the correspondence backward on the card, for the pair
+    (the function: theta, phi, values, m, l, D, d_sim, d_out in; dtheta,
+    dphi, dvalues out) and for each kernel as its wrapper computes it:
+
+      ops:   the score pass, 2 B Nq Nk C FLOP, must be fp32 FMAs in K1's
+             order (PEAK_FP32_FLOPS); the products need no order and run
+             at the TF32 tensor-core rate (PEAK_TF32_FLOPS): dtheta and
+             dphi 2 B Nq Nk C each, dvalues 2 B Nq Nk 3. The pair's ops
+             bound is max(score pass, all products); K3's max(score pass,
+             dphi + dvalues); K2b's the dtheta product.
+      bytes: each input read once, each output written once, at
+             PEAK_BYTES_PER_S. K3's outputs include the df scratch
+             [B, Nq', Nk'] and K2b's inputs include it; the pair's do not.
+
+    The earlier bound of 6.6 ms per kernel (both products and a score pass
+    each at the fp32 rate) is retired: the design forms the scores once and
+    the products are no longer bound to the fp32 pipe."""
+    from devc_tpu_torch.ops.cuda_corr import df_scratch_bytes
+
+    pairs = b * nq * nk
+    score_ms = 2 * pairs * c / PEAK_FP32_FLOPS * 1e3
+    product_ms = lambda width: 2 * pairs * width / PEAK_TF32_FLOPS * 1e3
+    byte_ms = lambda n: n / PEAK_BYTES_PER_S * 1e3
+    df_bytes = b * df_scratch_bytes(nq, nk)
+    rows_in = 4 * b * nq * (1 + 1 + 1 + 1 + 3)  # m, l, D, d_sim, d_out
+    theta_b, phi_b = 4 * b * nq * c, 4 * b * nk * c
+    values_b = 4 * b * nk * 3
+
+    def pick(ops_ms, nbytes):
+        return {"bound_ms": max(ops_ms, byte_ms(nbytes)),
+                "bound_by": "operations" if ops_ms >= byte_ms(nbytes)
+                else "bytes"}
+
+    return {
+        "pair": pick(max(score_ms, product_ms(2 * c + 3)),
+                     2 * theta_b + 2 * phi_b + 2 * values_b + rows_in),
+        "corr_bwd_dkv": pick(max(score_ms, product_ms(c + 3)),
+                             theta_b + 2 * phi_b + 2 * values_b + rows_in
+                             + df_bytes),
+        "corr_bwd_dq": pick(product_ms(c), df_bytes + phi_b + theta_b),
+        "df_scratch_bytes": df_bytes,
+    }
+
+
+# the backward's cases: (B, N, C); the first two are timed and get the
+# routing check; C = 96 and 512 at ragged N; one sample at 864x1536
+BWD_CASES = ((TRAIN_B, TRAIN_N, 256), (1, TRAIN_N, 256), (2, 4500, 96),
+             (1, 520, 512), (1, 20736, 256))
+
+
 def phase_bwd(seed: int):
-    """K2b and K3 vs their plain version on the card, and the sim-gradient
-    routing check. Returns the per-kernel summaries (without launches)."""
+    """K2b and K3 vs their plain version on the card, two calls bit-equal,
+    a chunked run bit-equal to one chunk, and the sim-gradient routing
+    check. Returns the per-kernel summaries (without launches)."""
     import numpy as np
     import torch
 
@@ -385,11 +444,10 @@ def phase_bwd(seed: int):
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(seed + 7)
-    c, temperature = 256, 0.01
+    temperature = 0.01
     summary = {"corr_bwd_dq": {"max_abs_err": 0.0},
                "corr_bwd_dkv": {"max_abs_err": 0.0}}
-    for b in (TRAIN_B, 1):
-        n = TRAIN_N
+    for b, n, c in BWD_CASES:
         theta, phi = unit_rows(rng, b, n, c), unit_rows(rng, b, n, c)
         values = (rng.rand(b, n, 3).astype(np.float32) - 0.5) * 100
         d_out = rng.randn(b, n, 3).astype(np.float32)
@@ -400,69 +458,135 @@ def phase_bwd(seed: int):
                                          emit_l=True)
         args = (theta, phi, values, sim, l, out, d_out, d_sim, temperature)
         got = cuda_corr.corr_bwd(*args)
+        again = cuda_corr.corr_bwd(*args)
         want = correspondence_bwd_plain(*args)
         torch.cuda.synchronize()
         errs = {}
-        for name, g, w in zip(("dtheta", "dphi", "dvalues"), got, want):
+        for name, g, w, g2 in zip(("dtheta", "dphi", "dvalues"), got, want,
+                                  again):
             errs[name] = (g - w).abs().max().item()
             # devc_tpu's bound for its Pallas VJP vs einsum autodiff
             # (tests/test_pallas_grad.py)
             ok = bool(((g - w).abs() <= 5e-3 + 1e-3 * w.abs()).all())
-            assert ok, (b, name, errs[name])
-        dd = (d_out * out).sum(dim=-1, keepdim=True)
-        kargs = (theta, phi, values, sim, l, dd, d_sim, d_out, temperature)
-        plain_ms = cuda_ms(lambda: correspondence_bwd_plain(*args))
-        for kernel, fn, extra, outs in (
-                ("corr_bwd_dq", cuda_corr.corr_bwd_dq, 3, ("dtheta",)),
-                ("corr_bwd_dkv", cuda_corr.corr_bwd_dkv, 6, ("dphi", "dvalues"))):
-            ms = cuda_ms(lambda: fn(*kargs))
-            flop = 2 * b * n * n * (2 * c + extra)
-            # inputs theta, phi, values, m, l, D, d_sim, d_out read once;
-            # the outputs written once
-            nbytes = 4 * b * n * (2 * c + 3 + 4 + 3) + 4 * b * n * (
-                c if kernel == "corr_bwd_dq" else c + 3)
-            case = {"kernel": kernel, "b": b, "n": n, "c": c,
-                    "temperature": temperature,
-                    "max_abs_err": max(errs[o] for o in outs),
-                    "ms": ms, "plain_ms_both_outputs": plain_ms,
-                    "gflop_per_s": flop / ms / 1e6, **bound(flop, nbytes)}
-            emit("bwd", **case)
-            s = summary[kernel]
-            s["max_abs_err"] = max(s["max_abs_err"], case["max_abs_err"])
-            if b == TRAIN_B:
-                s.update(ms=ms, plain_ms=plain_ms,
-                         plain_call="correspondence_bwd_plain: dtheta, dphi "
-                         "and dvalues together", library_ms=None,
-                         library_call="none: no single PyTorch call computes "
-                         "the correspondence backward (the sim-gradient term "
-                         "has no library counterpart)",
-                         **bound(flop, nbytes))
-
-        # routing: d_out = 0, d_sim = 1 leaves df = 1[s == m]; every row's
-        # dtheta must be phi at its argmax. The argmax is taken from fp64
-        # scores; where their top two are within 1e-5 the fp32 max may be
-        # either, and the row may match either.
-        dtheta, _, _ = cuda_corr.corr_bwd(theta, phi, values, sim, l, out,
-                                          torch.zeros_like(d_out),
-                                          torch.ones_like(d_sim), temperature)
-        s64 = torch.bmm(theta.double(), phi.double().transpose(1, 2))
-        top = s64.topk(2, dim=-1)
-        del s64
-        pick = lambda j: torch.gather(
-            phi, 1, top.indices[..., j:j + 1].expand(-1, -1, c))
-        err1 = (dtheta - pick(0)).abs().amax(dim=-1)
-        err2 = (dtheta - pick(1)).abs().amax(dim=-1)
-        near_tie = (top.values[..., 0] - top.values[..., 1]) < 1e-5
-        ok = (err1 <= 1e-6) | (near_tie & (err2 <= 1e-6))
-        case = {"check": "dsim_routing", "b": b, "n": n,
-                "rows": b * n, "rows_ok": int(ok.sum().item()),
-                "near_tie_rows": int(near_tie.sum().item()),
-                "max_err_at_argmax": err1.max().item()}
+            assert ok, (b, n, c, name, errs[name])
+            assert torch.equal(g, g2), (b, n, c, name, "second call differs")
+        bounds = bwd_bounds(b, n, n, c)
+        case = {"check": "vs_plain", "b": b, "n": n, "c": c,
+                "temperature": temperature, "max_abs_err": errs,
+                "second_call": "bit-equal",
+                "df_scratch_bytes": bounds["df_scratch_bytes"],
+                "chunks": len(cuda_corr.plan_batch_chunks(b, n, n))}
+        if b == TRAIN_B:
+            # four chunks of four samples: the same bits as one chunk
+            budget = 4 * cuda_corr.df_scratch_bytes(n, n)
+            chunked = cuda_corr.corr_bwd(*args, scratch_budget=budget)
+            assert all(torch.equal(x, y) for x, y in zip(chunked, got))
+            case["chunked_4x4"] = "bit-equal"
+            del chunked
         emit("bwd", **case)
-        assert bool(ok.all()), case
-        del got, want, out, sim, l, dtheta, top
+        for kernel, outs in (("corr_bwd_dq", ("dtheta",)),
+                             ("corr_bwd_dkv", ("dphi", "dvalues"))):
+            s = summary[kernel]
+            s["max_abs_err"] = max([s["max_abs_err"]] + [errs[o] for o in outs])
+        del got, again, want
+
+        if n == TRAIN_N and c == 256:
+            _bwd_times(summary, cuda_corr, args, bounds, b, n, c)
+            _bwd_routing(cuda_corr, args, b, n, c)
+        del theta, phi, values, d_out, d_sim, out, sim, l, args
         torch.cuda.empty_cache()
     return summary
+
+
+def _bwd_times(summary, cuda_corr, args, bounds, b, n, c):
+    """Each kernel alone, the pair (corr_bwd, D included) and the plain
+    backward, timed with the card queued ahead of the host."""
+    import torch
+
+    from devc_tpu_torch.ops.correspondence import correspondence_bwd_plain
+
+    theta, phi, values, sim, l, out, d_out, d_sim, temperature = args
+    dd = (d_out * out).sum(dim=-1, keepdim=True)
+    df = torch.empty((b, cuda_corr.padded(n), cuda_corr.padded(n)),
+                     dtype=torch.float32, device=theta.device)
+    kargs = (theta, phi, values, sim, l, dd, d_sim, d_out, temperature, df)
+    ms = {"corr_bwd_dkv": cuda_ms(lambda: cuda_corr.corr_bwd_dkv(*kargs),
+                                  queued=True),
+          "corr_bwd_dq": cuda_ms(lambda: cuda_corr.corr_bwd_dq(df, phi, n),
+                                 queued=True)}
+    pair_ms = cuda_ms(lambda: cuda_corr.corr_bwd(*args), queued=True)
+    plain_ms = cuda_ms(lambda: correspondence_bwd_plain(*args), queued=True)
+    pair = bounds["pair"]
+    # the products alone: the kernels' dtheta and dphi (3xTF32 on the
+    # tensor cores) against fp64 products of their own df, beside cuBLAS's
+    # fp32 product of the same df (TF32 off) as the yardstick
+    dphi, _ = cuda_corr.corr_bwd_dkv(*kargs)
+    dtheta = cuda_corr.corr_bwd_dq(df, phi, n)
+    prod_err = {"dtheta": 0.0, "dphi": 0.0, "cublas_fp32_dtheta": 0.0}
+    for i in range(b):
+        d64 = df[i, :n, :n].double()
+        want = d64 @ phi[i].double()
+        cublas = df[i, :n, :n] @ phi[i]
+        for key, got in (("dtheta", dtheta[i]), ("cublas_fp32_dtheta", cublas)):
+            prod_err[key] = max(prod_err[key],
+                                (got.double() - want).abs().max().item())
+        want = d64.t() @ theta[i].double()
+        prod_err["dphi"] = max(prod_err["dphi"],
+                               (dphi[i].double() - want).abs().max().item())
+        del d64, want, cublas
+    emit("bwd", check="products_vs_fp64_on_own_df", b=b, n=n, c=c,
+         max_abs_err=prod_err)
+    del dphi, dtheta
+    for kernel in ("corr_bwd_dkv", "corr_bwd_dq"):
+        own = bounds[kernel]
+        case = {"kernel": kernel, "b": b, "n": n, "c": c,
+                "temperature": temperature, "ms": ms[kernel],
+                "share_of_own_bound": own["bound_ms"] / ms[kernel], **own,
+                "pair_ms": pair_ms, "pair_bound_ms": pair["bound_ms"],
+                "pair_bound_by": pair["bound_by"],
+                "pair_share_of_bound": pair["bound_ms"] / pair_ms,
+                "plain_ms_both_outputs": plain_ms,
+                "df_scratch_bytes": bounds["df_scratch_bytes"]}
+        emit("bwd", **case)
+        if b == TRAIN_B:
+            summary[kernel].update(
+                ms=ms[kernel], plain_ms=plain_ms,
+                plain_call="correspondence_bwd_plain: dtheta, dphi and "
+                "dvalues together", library_ms=None,
+                library_call="none: no single PyTorch call computes the "
+                "correspondence backward (the sim-gradient term has no "
+                "library counterpart)", **own, pair_ms=pair_ms,
+                pair_bound_ms=pair["bound_ms"],
+                df_scratch_bytes=bounds["df_scratch_bytes"])
+    del df
+
+
+def _bwd_routing(cuda_corr, args, b, n, c):
+    """d_out = 0, d_sim = 1 leaves df = 1[s == m]; every row's dtheta must
+    be phi at its argmax. The argmax is taken from fp64 scores; where their
+    top two are within 1e-5 the fp32 max may be either, and the row may
+    match either."""
+    import torch
+
+    theta, phi, values, sim, l, out, d_out, d_sim, temperature = args
+    dtheta, _, _ = cuda_corr.corr_bwd(theta, phi, values, sim, l, out,
+                                      torch.zeros_like(d_out),
+                                      torch.ones_like(d_sim), temperature)
+    s64 = torch.bmm(theta.double(), phi.double().transpose(1, 2))
+    top = s64.topk(2, dim=-1)
+    del s64
+    pick = lambda j: torch.gather(
+        phi, 1, top.indices[..., j:j + 1].expand(-1, -1, c))
+    err1 = (dtheta - pick(0)).abs().amax(dim=-1)
+    err2 = (dtheta - pick(1)).abs().amax(dim=-1)
+    near_tie = (top.values[..., 0] - top.values[..., 1]) < 1e-5
+    ok = (err1 <= 1e-6) | (near_tie & (err2 <= 1e-6))
+    case = {"check": "dsim_routing", "b": b, "n": n,
+            "rows": b * n, "rows_ok": int(ok.sum().item()),
+            "near_tie_rows": int(near_tie.sum().item()),
+            "max_err_at_argmax": err1.max().item()}
+    emit("bwd", **case)
+    assert bool(ok.all()), case
 
 
 def phase_parity(models_cpu, models_gpu, seed: int):
@@ -828,8 +952,9 @@ def phase_train_parity(seed: int):
 # kernel name fragments -> the training step's layers, first match wins
 KERNEL_GROUPS = (
     ("K1 corr_fwd", ("corr_fwd_kernel", "corr_combine_kernel")),
-    ("K2b corr_bwd_dq", ("corr_dq_kernel",)),
-    ("K3 corr_bwd_dkv", ("corr_dkv_kernel",)),
+    ("K2b corr_bwd_dq", ("corr_dq_product_kernel",)),
+    ("K3 corr_bwd_dkv", ("corr_dkv_scores_kernel", "corr_dkv_rows_kernel",
+                         "corr_dkv_product_kernel")),
     ("K2b/K3 split merge", ("sum_splits_kernel",)),
     ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "xmma",
                               "cudnn", "winograd", "implicit")),

@@ -1,40 +1,64 @@
-// Backward of the fused correspondence (K1): the two kernels behind its
-// gradient.
+// Backward of the fused correspondence (K1): one score pass and two
+// products on the tensor cores.
 //
-//   dq  (replaces devc_tpu/ops/pallas_corr.py::_corr_dq_kernel):
-//       dtheta = df . phi, reduced over the keys
-//   dkv (replaces devc_tpu/ops/pallas_corr.py::_corr_dkv_kernel):
-//       dphi = df^T . theta, dvalues = attn^T . dout, reduced over queries
-//
-// with the tile math of pallas_corr.py::_grad_tile on every (query, key):
+// Replaces devc_tpu/ops/pallas_corr.py::_corr_dkv_kernel (K3: dphi and
+// dvalues, reduced over the queries) and ::_corr_dq_kernel (K2b: dtheta,
+// reduced over the keys), with the tile math of pallas_corr.py::_grad_tile
+// on every (query, key):
 //   s    = theta_q . phi_k                  (recomputed, as K1 forms it)
-//   attn = exp((s - m_q) / T) / l_q         (m, l saved by K1)
+//   attn = exp((s - m_q) / T) * (1 / l_q)   (m, l saved by K1)
 //   df   = attn (dout_q . v_k - D_q) / T + dsim_q 1[s == m_q]
-// where D_q = dout_q . out_q is computed outside the kernels (the
-// flash-attention delta trick, as in JAX). The sim gradient goes to every
-// key whose score equals the saved row max, every exact tie included
-// (the einsum path's autodiff would split it; see ROADMAP C4).
+//   dtheta = df phi,  dphi = df^T theta,  dvalues = attn^T dout
+// where D_q = dout_q . out_q is formed outside (the flash-attention delta
+// trick, as in JAX). The sim gradient goes to every key whose score equals
+// the saved row max, every exact tie included (ROADMAP C4). 1 / l_q is
+// taken once per row (an IEEE division), so attn may differ from
+// exp(..) / l in its last bit.
 //
-// What bounds them on the H100: arithmetic. Each does 2 N^2 (2C + 3) or
-// 2 N^2 (2C + 6) FLOP per sample (0.55 TFLOP at B = 16, N = 5184, C = 256)
-// on O(N C) bytes. The scores must be fp32 FMAs in K1's order (s == m is
-// an exact test), so the tensor cores are out and the ceiling is the fp32
-// FMA rate. The design:
-//   * a block holds one 64-row tile of the side it writes (queries for
-//     dq, keys for dkv) in shared memory for its whole life and streams
-//     64-row tiles of the other side through a second buffer, full width
-//     (C + 4 floats a row: float4 reads by 8 lanes hit 32 distinct banks);
-//   * 256 threads; each forms a 4 x 4 block of scores, writes its df to a
-//     shared tile, and after a barrier adds df times the streamed (or
-//     resident) rows into a 4-row x C/16-channel register accumulator:
-//     five float4 shared loads per 64 FMAs;
-//   * the reduction axis (keys for dq, queries for dkv) can be split over
-//     `splits` blocks when there are too few tiles to fill the SMs (one
-//     sample of N = 5184 has 81); each writes a partial sum and a second
-//     kernel adds the partials in split order, so the result is the same
-//     from run to run (no atomics).
-// Rows and keys past the end are excluded by bounds checks, as in K1:
-// their df and attn are 0 and they are never written.
+// What bounds it on the H100: arithmetic. The score pass is 2 N^2 C FLOP
+// per sample that must be fp32 FMAs in K1's order: the backward finds K1's
+// row max by the exact test s == m, so every score goes through
+// corr_score_step (corr_common.cuh), channels ascending from 0.f, one fmaf
+// each, and the tensor cores (another summation order, and TF32 inputs)
+// are out for it. At B = 16, N = 5184, C = 256 that pass alone is 3.29 ms
+// at the 67 TFLOP/s fp32 peak. The three products (2 N^2 (2C + 3) FLOP)
+// need no fixed order, so the two large ones run on the tensor cores,
+// where their ceiling is 495 TFLOP/s (TF32) instead of 67.
+//
+// The design:
+//   * corr_dkv_scores_kernel forms every score once. A block keeps a tile
+//     of 128 keys (phi rows, padded to C + 4 floats, and their values)
+//     resident in shared memory and streams 128-query tiles through a
+//     2-stage cp.async ring of 64-channel stages (K1's pipeline with the
+//     roles of queries and keys swapped; a tile's packed row constants
+//     ride with its last chunk). 256 threads, each with an 8 x 8 register
+//     tile of scores (queries ty + 16 i, keys tx + 16 j). On a finished
+//     tile it forms attn and df, adds attn . dout into per-key registers
+//     (dvalues: 3 FMAs a score), and writes df to a scratch array
+//     [B, Nq', Nk'] (Nq', Nk' rounded up to 128; zero outside the valid
+//     rows and keys). Above C = 288 the key tile no longer fits beside the
+//     ring and streams through it too, as K1's query tile does.
+//   * corr_dkv_product_kernel (dphi = df^T theta) and
+//     corr_dq_product_kernel (dtheta = df phi) read that scratch and run
+//     on the tensor cores with mma.sync.m16n8k8 in 3xTF32: each fp32
+//     operand x is split into hi = tf32(x) and lo = tf32(x - hi), and
+//     lo.hi + hi.lo + hi.hi of each 8-deep step is summed on the tensor
+//     cores and added to an fp32 running sum by an ordinary add, which
+//     keeps about fp32's accuracy (a single TF32 pass leaves ~1e-4
+//     relative, and the routing check needs dtheta within 1e-6 of phi;
+//     one accumulator over the whole depth on the tensor cores, which
+//     truncate, left 10x cuBLAS's fp32 error at N = 5184). 128 x 128 output
+//     tiles, 32-deep steps through a 3-stage cp.async ring, 8 warps of
+//     32 x 64 each, two blocks per SM (128 registers a thread).
+//   * the wrapper runs the batch in chunks whose scratch fits a budget
+//     (ops/cuda_corr.py::plan_batch_chunks), score pass then products per
+//     chunk.
+//   * deterministic: no atomics. Where a reduction is split over blocks
+//     (the queries of the score pass for dvalues, the depth of a product,
+//     when too few tiles fill the SMs), each block writes a partial and
+//     sum_splits_kernel adds them in split order.
+// Any C % 32 == 0: a last 32-channel chunk is half a stage; the products
+// zero-fill the columns past C.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,303 +67,484 @@
 
 namespace {
 
-constexpr int T = 64;          // rows per tile, both sides
-constexpr int THREADS = 256;   // 16 (ty) x 16 (tx)
 constexpr int V = 3;
-constexpr int DP = T + 4;      // padded row stride of the df tile
-constexpr int ROW = 8;         // per-query row constants: m, l, D, dsim, dout[3]
-constexpr int MAX_C = 256;     // channels a thread's accumulator can hold: 16 x 16
+constexpr int THREADS = 256;
 
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// ---------------------------------------------------------------- cp.async
+
+// cp.async of 16 bytes; src_bytes < 16 zero-fills the rest (0: nothing is
+// read, src only has to be a valid address).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
 }
 
-__host__ __device__ constexpr int row_stride(int c) { return c + 4; }
-
-// Stage rows [r0, r0 + T) of a row-major [n, c] matrix into dst[T][c + 4];
-// rows past n are zero.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int r0, int n, int c) {
-  const int c4n = c / 4;
-  for (int i = threadIdx.x; i < T * c4n; i += THREADS) {
-    const int r = i / c4n;
-    const int c4 = i % c4n;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n)
-      x = reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * c)[c4];
-    *reinterpret_cast<float4*>(dst + r * row_stride(c) + 4 * c4) = x;
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// Stage the per-row constants of queries [q0, q0 + T) into row_s[T][ROW].
-// Rows past nq get l = 1 and zeros; their df is masked anyway.
-__device__ __forceinline__ void stage_row_constants(
-    float* row_s, const float* m, const float* l, const float* dd,
-    const float* dsim, const float* dout, size_t base, int q0, int nq) {
-  for (int r = threadIdx.x; r < T; r += THREADS) {
-    float* rs = row_s + r * ROW;
-    const int q = q0 + r;
-    if (q < nq) {
-      const size_t o = base + q;
-      rs[0] = m[o];
-      rs[1] = l[o];
-      rs[2] = dd[o];
-      rs[3] = dsim[o];
-#pragma unroll
-      for (int v = 0; v < V; ++v) rs[4 + v] = dout[o * V + v];
-    } else {
-      rs[0] = 0.f;
-      rs[1] = 1.f;
-#pragma unroll
-      for (int k = 2; k < ROW; ++k) rs[k] = 0.f;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------------------------- score pass
+
+constexpr int TQ = 128;      // queries per streamed tile
+constexpr int TK = 128;      // keys per block (resident)
+constexpr int CK = 64;       // channels per ring stage
+constexpr int CH = 32;       // channels per compute step (C % CH == 0)
+constexpr int STAGES = 2;    // ring depth: one stage in flight
+constexpr int QI = TQ / 16;  // a thread's queries: ty + 16 i, i < QI
+constexpr int KJ = TK / 16;  // a thread's keys: tx + 16 j, j < KJ
+constexpr int LD = CK + 4;   // padded row stride of a staged chunk
+constexpr int RC = 8;        // packed row constants: m, 1/l, D, dsim, dout[3], 0
+constexpr int RESIDENT_MAX_C = 288;  // the largest C whose key tile fits
+constexpr int PAD = 128;     // Nq', Nk': rounded up to this
+
+__host__ __device__ constexpr int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+
+__host__ __device__ constexpr int k_floats(bool resident, int c) {
+  return resident ? TK * (c + 4) : STAGES * TK * LD;
+}
+
+size_t scores_smem_bytes(bool resident, int c) {
+  return sizeof(float) * ((size_t)k_floats(resident, c) + STAGES * TQ * LD +
+                          STAGES * TQ * RC + TK * V);
+}
+
+// Copy rows [r0, r0 + rows) x channels [c0, c0 + width) of a row-major
+// [n, c] matrix into dst[rows][ld], dst[0][0] holding channel c0; rows
+// past n are zero. width is a multiple of CH.
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src,
+                                           int r0, int rows, int n, int c,
+                                           int c0, int width) {
+  constexpr int W4 = CH / 4;  // 16-byte pieces of a row's CH channels
+  for (int h = 0; h < width; h += CH) {
+    for (int i = threadIdx.x; i < rows * W4; i += THREADS) {
+      const int r = i / W4;
+      const int c4 = i % W4;
+      const bool in = r0 + r < n;
+      cp_async16(dst + r * ld + h + 4 * c4,
+                 in ? src + (size_t)(r0 + r) * c + c0 + h + 4 * c4 : src,
+                 in ? 16 : 0);
     }
   }
 }
 
-// s[i][j] = score(query row qr[i] of q_s, key row kr[j] of k_s), channels
-// in ascending order through corr_score_step, as K1 forms it.
-__device__ __forceinline__ void tile_scores(float (&s)[4][4], const float* q_s,
-                                            const int (&qr)[4],
-                                            const float* k_s,
-                                            const int (&kr)[4], int c) {
-  const int ld = row_stride(c);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  for (int c4 = 0; c4 < c; c4 += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(q_s + qr[i] * ld + c4);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(k_s + kr[j] * ld + c4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = corr_score_step(s[i][j], a[i].x, b[j].x);
-        s[i][j] = corr_score_step(s[i][j], a[i].y, b[j].y);
-        s[i][j] = corr_score_step(s[i][j], a[i].z, b[j].z);
-        s[i][j] = corr_score_step(s[i][j], a[i].w, b[j].w);
-      }
+// rows[b][q] = (m, 1 / l, D, dsim, dout[0..2], 0) for q < nq, zeros up to
+// nq_pad.
+__global__ void corr_dkv_rows_kernel(const float* __restrict__ m,
+                                     const float* __restrict__ l,
+                                     const float* __restrict__ dd,
+                                     const float* __restrict__ dsim,
+                                     const float* __restrict__ dout,
+                                     float* __restrict__ rows, int nq,
+                                     int nq_pad, int total) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int b = i / nq_pad;
+  const int q = i % nq_pad;
+  float4 r0 = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 r1 = r0;
+  if (q < nq) {
+    const size_t o = (size_t)b * nq + q;
+    r0 = make_float4(m[o], 1.f / l[o], dd[o], dsim[o]);
+    r1 = make_float4(dout[o * V], dout[o * V + 1], dout[o * V + 2], 0.f);
   }
+  float4* dst = reinterpret_cast<float4*>(rows + (size_t)i * RC);
+  dst[0] = r0;
+  dst[1] = r1;
 }
 
-// The df of one (query, key) pair, and its attn through *attn_out.
-__device__ __forceinline__ float grad_score(float s, const float* rs,
-                                            const float* v, float inv_t,
-                                            float* attn_out) {
-  const float m = rs[0];
-  const float attn = expf((s - m) * inv_t) / rs[1];
-  const float dps = rs[4] * v[0] + rs[5] * v[1] + rs[6] * v[2];
-  float df = attn * (dps - rs[2]) * inv_t;
-  if (s == m) df += rs[3];
-  *attn_out = attn;
-  return df;
-}
-
-// acc[i][4 jj + e] += sum_r d[r][i] * src[r][4 tx + 64 jj + e] over the T
-// rows r of a df tile (d_s[r][DP], this thread's 4 columns at 4 ty) and
-// a staged matrix src[r][c + 4].
-__device__ __forceinline__ void accumulate(float (&acc)[4][16],
-                                           const float* d_s, const float* src,
-                                           int ty, int tx, int c) {
-  const int ld = row_stride(c);
-#pragma unroll 2
-  for (int r = 0; r < T; ++r) {
-    const float4 d = *reinterpret_cast<const float4*>(d_s + r * DP + 4 * ty);
-    const float dv[4] = {d.x, d.y, d.z, d.w};
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      if (4 * tx + 64 * jj >= c) break;
-      const float4 p =
-          *reinterpret_cast<const float4*>(src + r * ld + 4 * tx + 64 * jj);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][4 * jj + 0] = fmaf(dv[i], p.x, acc[i][4 * jj + 0]);
-        acc[i][4 * jj + 1] = fmaf(dv[i], p.y, acc[i][4 * jj + 1]);
-        acc[i][4 * jj + 2] = fmaf(dv[i], p.z, acc[i][4 * jj + 2]);
-        acc[i][4 * jj + 3] = fmaf(dv[i], p.w, acc[i][4 * jj + 3]);
-      }
-    }
-  }
-}
-
-// Store rows 4 ty + i of a thread's accumulator to out[row][c] (rows below n).
-__device__ __forceinline__ void store_acc(float* out, const float (&acc)[4][16],
-                                          int r0, int n, int ty, int tx,
-                                          int c) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + 4 * ty + i;
-    if (r >= n) continue;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      if (4 * tx + 64 * jj >= c) break;
-      *reinterpret_cast<float4*>(out + (size_t)r * c + 4 * tx + 64 * jj) =
-          make_float4(acc[i][4 * jj + 0], acc[i][4 * jj + 1],
-                      acc[i][4 * jj + 2], acc[i][4 * jj + 3]);
-    }
-  }
-}
-
-size_t smem_bytes(int c) {
-  return sizeof(float) *
-         (2 * T * row_stride(c) + T * DP + T * ROW + T * V);
-}
-
-// One block: the 64 queries of tile blockIdx.x against the key tiles of
-// split blockIdx.y. Writes dtheta rows (or, with splits, its partial sum
-// to dtheta + split * B * nq * c).
+// One block: the TK keys of tile blockIdx.x against the query tiles of
+// split blockIdx.y. Writes df[b][q][k] for the block's keys and every
+// query of its tiles (0 outside q < nq, k < nk), and its dvalues sums to
+// dv_out[split][b][k][V].
+template <bool kResident>
 __global__ void __launch_bounds__(THREADS, 1)
-corr_dq_kernel(const float* __restrict__ theta, const float* __restrict__ phi,
-               const float* __restrict__ values, const float* __restrict__ m,
-               const float* __restrict__ l, const float* __restrict__ dd,
-               const float* __restrict__ dsim, const float* __restrict__ dout,
-               float* __restrict__ dtheta, int nq, int nk, int c,
-               int tiles_per_split, float inv_t) {
-  extern __shared__ float4 smem4[];
-  float* th_s = reinterpret_cast<float*>(smem4);  // [T][c + 4] queries
-  float* ph_s = th_s + T * row_stride(c);         // [T][c + 4] keys
-  float* df_s = ph_s + T * row_stride(c);         // [key][DP] by query
-  float* row_s = df_s + T * DP;                   // [query][ROW]
-  float* v_s = row_s + T * ROW;                   // [key][V]
+corr_dkv_scores_kernel(const float* __restrict__ theta,
+                       const float* __restrict__ phi,
+                       const float* __restrict__ values,
+                       const float* __restrict__ rows,
+                       float* __restrict__ df, float* __restrict__ dv_out,
+                       int nq, int nk, int c, int tiles_per_split,
+                       float inv_t) {
+  extern __shared__ __align__(16) float smem[];
+  float* k_s = smem;  // resident [TK][c + 4], or [STAGES][TK][LD]
+  float* q_s = smem + k_floats(kResident, c);  // [STAGES][TQ][LD]
+  float* r_s = q_s + STAGES * TQ * LD;         // [STAGES][TQ][RC]
+  float* v_s = r_s + STAGES * TQ * RC;         // [TK][V]
 
+  const int nq_pad = round_up(nq, PAD);
+  const int nk_pad = round_up(nk, PAD);
   const int b = blockIdx.z;
-  const int q0 = blockIdx.x * T;
-  const int k_begin = blockIdx.y * tiles_per_split * T;
-  const int k_end = min(nk, k_begin + tiles_per_split * T);
-  const int ty = threadIdx.x / 16;  // queries 4 ty .. 4 ty + 3
-  const int tx = threadIdx.x % 16;  // keys tx + 16 j; channels 4 tx + 64 jj
+  const int k0 = blockIdx.x * TK;
+  const int q_begin = blockIdx.y * tiles_per_split * TQ;
+  const int q_end = min(nq_pad, q_begin + tiles_per_split * TQ);
+  const float* th_g = theta + (size_t)b * nq * c;
+  const float* ph_g = phi + (size_t)b * nk * c;
+  const float* r_g = rows + (size_t)b * nq_pad * RC;
+  float* df_g = df + (size_t)b * nq_pad * nk_pad;
 
-  stage_rows(th_s, theta + (size_t)b * nq * c, q0, nq, c);
-  stage_row_constants(row_s, m, l, dd, dsim, dout, (size_t)b * nq, q0, nq);
+  const int ty = threadIdx.x / 16;  // queries ty + 16 i
+  const int tx = threadIdx.x % 16;  // keys tx + 16 j
+  const int cpt = (c + CK - 1) / CK;  // chunks per query tile; the last
+                                     // may hold CH channels of CK
+  const int n_chunks = (q_end - q_begin) / TQ * cpt;
 
-  const int qr[4] = {4 * ty, 4 * ty + 1, 4 * ty + 2, 4 * ty + 3};
-  const int kr[4] = {tx, tx + 16, tx + 32, tx + 48};
-  float acc[4][16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < 16; ++k) acc[i][k] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += T) {
-    __syncthreads();  // the previous key tile and df tile are consumed
-    stage_rows(ph_s, phi + (size_t)b * nk * c, k0, nk, c);
-    for (int i = threadIdx.x; i < T * V; i += THREADS)
-      v_s[i] = (k0 + i / V < nk) ? values[((size_t)b * nk + k0) * V + i] : 0.f;
-    __syncthreads();
-
-    float s[4][4];
-    tile_scores(s, th_s, qr, ph_s, kr, c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool key_ok = k0 + kr[j] < k_end;
-      float d[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float attn;  // dq needs only df
-        d[i] = (key_ok && q0 + qr[i] < nq)
-                   ? grad_score(s[i][j], row_s + qr[i] * ROW, v_s + kr[j] * V,
-                                inv_t, &attn)
-                   : 0.f;
+  // Fill ring slot g % STAGES with chunk g (query tile g / cpt, channels
+  // (g % cpt) CK ..), and with the tile's row constants on its last
+  // chunk. Always commits a group, empty past the end.
+  auto fill_stage = [&](int g) {
+    if (g < n_chunks) {
+      const int slot = g % STAGES;
+      const int q0 = q_begin + g / cpt * TQ;
+      const int c0 = g % cpt * CK;
+      const int cw = min(CK, c - c0);
+      stage_rows(q_s + slot * TQ * LD, LD, th_g, q0, TQ, nq, c, c0, cw);
+      if (!kResident)
+        stage_rows(k_s + slot * TK * LD, LD, ph_g, k0, TK, nk, c, c0, cw);
+      if (g % cpt == cpt - 1) {
+        for (int i = threadIdx.x; i < TQ * RC / 4; i += THREADS)
+          cp_async16(r_s + slot * TQ * RC + 4 * i,
+                     r_g + (size_t)q0 * RC + 4 * i, 16);
       }
-      *reinterpret_cast<float4*>(df_s + kr[j] * DP + 4 * ty) =
-          make_float4(d[0], d[1], d[2], d[3]);
     }
-    __syncthreads();
-    accumulate(acc, df_s, ph_s, ty, tx, c);  // dtheta += df . phi
-  }
-  store_acc(dtheta + ((size_t)blockIdx.y * gridDim.z + b) * nq * c, acc, q0,
-            nq, ty, tx, c);
-}
+    cp_async_commit();
+  };
 
-// One block: the 64 keys of tile blockIdx.x against the query tiles of
-// split blockIdx.y. Writes dphi and dvalues rows (or partial sums, as dq).
-__global__ void __launch_bounds__(THREADS, 1)
-corr_dkv_kernel(const float* __restrict__ theta, const float* __restrict__ phi,
-                const float* __restrict__ values, const float* __restrict__ m,
-                const float* __restrict__ l, const float* __restrict__ dd,
-                const float* __restrict__ dsim, const float* __restrict__ dout,
-                float* __restrict__ dphi, float* __restrict__ dvalues, int nq,
-                int nk, int c, int tiles_per_split, float inv_t) {
-  extern __shared__ float4 smem4[];
-  float* ph_s = reinterpret_cast<float*>(smem4);  // [T][c + 4] keys
-  float* th_s = ph_s + T * row_stride(c);         // [T][c + 4] queries
-  float* df_s = th_s + T * row_stride(c);         // [query][DP] by key
-  float* row_s = df_s + T * DP;                   // [query][ROW]
-  float* v_s = row_s + T * ROW;                   // [key][V]
-
-  const int b = blockIdx.z;
-  const int k0 = blockIdx.x * T;
-  const int q_begin = blockIdx.y * tiles_per_split * T;
-  const int q_end = min(nq, q_begin + tiles_per_split * T);
-  const int ty = threadIdx.x / 16;  // keys 4 ty .. 4 ty + 3
-  const int tx = threadIdx.x % 16;  // queries tx + 16 j; channels 4 tx + 64 jj
-
-  stage_rows(ph_s, phi + (size_t)b * nk * c, k0, nk, c);
-  for (int i = threadIdx.x; i < T * V; i += THREADS)
-    v_s[i] = (k0 + i / V < nk) ? values[((size_t)b * nk + k0) * V + i] : 0.f;
-
-  const int kr[4] = {4 * ty, 4 * ty + 1, 4 * ty + 2, 4 * ty + 3};
-  const int qr[4] = {tx, tx + 16, tx + 32, tx + 48};
-  float acc[4][16], dv[4][V];
+  if (kResident) stage_rows(k_s, c + 4, ph_g, k0, TK, nk, c, 0, c);
+  for (int i = threadIdx.x; i < TK * V; i += THREADS)
+    v_s[i] = ((size_t)k0 * V + i < (size_t)nk * V)
+                 ? values[((size_t)b * nk + k0) * V + i] : 0.f;
+  // the key tile's copies join chunk 0's group; the values' stores are
+  // seen after the loop's first barrier
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int g = 0; g < STAGES - 1; ++g) fill_stage(g);
+
+  float s[QI][KJ], dv[KJ][V];
+  bool k_ok[KJ];
 #pragma unroll
-    for (int k = 0; k < 16; ++k) acc[i][k] = 0.f;
+  for (int j = 0; j < KJ; ++j) {
+    k_ok[j] = k0 + tx + 16 * j < nk;
 #pragma unroll
-    for (int v = 0; v < V; ++v) dv[i][v] = 0.f;
+    for (int v = 0; v < V; ++v) dv[j][v] = 0.f;
+#pragma unroll
+    for (int i = 0; i < QI; ++i) s[i][j] = 0.f;
   }
 
-  for (int q0 = q_begin; q0 < q_end; q0 += T) {
-    __syncthreads();  // the previous query tile and df tile are consumed
-    stage_rows(th_s, theta + (size_t)b * nq * c, q0, nq, c);
-    stage_row_constants(row_s, m, l, dd, dsim, dout, (size_t)b * nq, q0, nq);
-    __syncthreads();
-
-    float s[4][4];  // s[j][i]: query qr[j], key kr[i]
-    tile_scores(s, th_s, qr, ph_s, kr, c);
+  for (int g = 0; g < n_chunks; ++g) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk g landed
+    __syncthreads();  // everyone's have, and everyone is done with g - 1
+    fill_stage(g + STAGES - 1);  // into the slot chunk g - 1 used
+    const int slot = g % STAGES;
+    const int ch = g % cpt;
+    const int cw = min(CK, c - ch * CK);
+    const float* kb = kResident ? k_s + ch * CK : k_s + slot * TK * LD;
+    const int k_ld = kResident ? c + 4 : LD;
+    const float* qb = q_s + slot * TQ * LD;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool query_ok = q0 + qr[j] < q_end;
-      const float* rs = row_s + qr[j] * ROW;
-      float d[4];
+    for (int h = 0; h < CK; h += CH) {
+      if (h >= cw) break;  // a last chunk of CH channels
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        d[i] = 0.f;
-        if (query_ok && k0 + kr[i] < nk) {
-          float attn;
-          d[i] = grad_score(s[j][i], rs, v_s + kr[i] * V, inv_t, &attn);
+      for (int cc = h; cc < h + CH; cc += 4) {
+        float4 kv[KJ];
 #pragma unroll
-          for (int v = 0; v < V; ++v) dv[i][v] = fmaf(attn, rs[4 + v], dv[i][v]);
+        for (int j = 0; j < KJ; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(kb + (tx + 16 * j) * k_ld + cc);
+#pragma unroll
+        for (int i = 0; i < QI; ++i) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qb + (ty + 16 * i) * LD + cc);
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) {
+            float x = s[i][j];
+            x = corr_score_step(x, qv.x, kv[j].x);
+            x = corr_score_step(x, qv.y, kv[j].y);
+            x = corr_score_step(x, qv.z, kv[j].z);
+            s[i][j] = corr_score_step(x, qv.w, kv[j].w);
+          }
         }
       }
-      *reinterpret_cast<float4*>(df_s + qr[j] * DP + 4 * ty) =
-          make_float4(d[0], d[1], d[2], d[3]);
     }
-    __syncthreads();
-    accumulate(acc, df_s, th_s, ty, tx, c);  // dphi += df^T . theta
-  }
+    if (ch != cpt - 1) continue;
 
-  const size_t part = (size_t)blockIdx.y * gridDim.z + b;
-  store_acc(dphi + part * nk * c, acc, k0, nk, ty, tx, c);
-  // the 16 lanes of a ty saw disjoint queries of the same 4 keys
+    // the query tile's scores are complete: attn, df and dvalues on the
+    // register tile; a warp's 16 lanes of one query row store 16
+    // consecutive keys of df
+    const int q0 = q_begin + g / cpt * TQ;
+    const float* rb = r_s + slot * TQ * RC;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < QI; ++i) {
+      const int ql = ty + 16 * i;
+      const float4 ra = *reinterpret_cast<const float4*>(rb + ql * RC);
+      const float4 rd = *reinterpret_cast<const float4*>(rb + ql * RC + 4);
+      const bool q_ok = q0 + ql < nq;
+      float* dst = df_g + (size_t)(q0 + ql) * nk_pad + k0 + tx;
 #pragma unroll
-    for (int v = 0; v < V; ++v) dv[i][v] = group16_sum(dv[i][v]);
-    const int k = k0 + kr[i];
-    if (tx == 0 && k < nk) {
+      for (int j = 0; j < KJ; ++j) {
+        float d = 0.f;
+        if (q_ok && k_ok[j]) {
+          const float* v = v_s + (tx + 16 * j) * V;
+          const float attn = expf((s[i][j] - ra.x) * inv_t) * ra.y;
+          const float dps = rd.x * v[0] + rd.y * v[1] + rd.z * v[2];
+          d = attn * (dps - ra.z) * inv_t;
+          if (s[i][j] == ra.x) d += ra.w;
+          dv[j][0] = fmaf(attn, rd.x, dv[j][0]);
+          dv[j][1] = fmaf(attn, rd.y, dv[j][1]);
+          dv[j][2] = fmaf(attn, rd.z, dv[j][2]);
+        }
+        dst[16 * j] = d;
+        s[i][j] = 0.f;
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // dvalues: the 16 ty of the block saw disjoint queries of the same
+  // keys. Lanes tx and tx + 16 of a warp first, then the 8 warps through
+  // shared memory (the ring, no longer read), in warp order.
 #pragma unroll
-      for (int v = 0; v < V; ++v) dvalues[(part * nk + k) * V + v] = dv[i][v];
+  for (int j = 0; j < KJ; ++j)
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      dv[j][v] += __shfl_xor_sync(0xffffffffu, dv[j][v], 16);
+  __syncthreads();
+  float* red = q_s;  // [8 warps][TK][V]
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 < 16) {
+#pragma unroll
+    for (int j = 0; j < KJ; ++j)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        red[(warp * TK + tx + 16 * j) * V + v] = dv[j][v];
+  }
+  __syncthreads();
+  float* dv_g = dv_out + ((size_t)blockIdx.y * gridDim.z + b) * nk * V;
+  for (int i = threadIdx.x; i < TK * V; i += THREADS) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) a += red[w * TK * V + i];
+    if (k0 + i / V < nk) dv_g[(size_t)k0 * V + i] = a;
+  }
+}
+
+// ------------------------------------------------- products, 3xTF32 mma
+
+constexpr int PM = 128;        // output rows per block
+constexpr int PN = 128;        // output channels per block
+constexpr int PK = 32;         // reduction depth per ring stage
+constexpr int PSTAGES = 3;     // raw ring depth: two stages in flight
+constexpr int A_LD = PK + 4;   // A tile [PM][A_LD]: fragment reads on
+                               // banks 4 g + t
+constexpr int AT_LD = PM + 8;  // transposed A tile [PK][AT_LD]: 8 t + g
+constexpr int B_LD = PN + 8;   // B tile [PK][B_LD]: 8 t + g
+constexpr int A_FLOATS = PM * A_LD > PK * AT_LD ? PM * A_LD : PK * AT_LD;
+constexpr int STAGE_FLOATS = A_FLOATS + PK * B_LD;
+
+size_t product_smem_bytes() {
+  return sizeof(float) * (size_t)PSTAGES * STAGE_FLOATS;
+}
+
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// (hi, lo) of x as two TF32 values in fp32 registers: hi = tf32(x),
+// lo = tf32(x - hi) (x - hi is exact in fp32).
+__device__ __forceinline__ float2 split_tf32(float x) {
+  const float hi = __uint_as_float(to_tf32(x));
+  return make_float2(hi, __uint_as_float(to_tf32(x - hi)));
+}
+
+// d += a . b on one 16 x 8 x 8 tile (fragments as the PTX ISA lays out
+// mma.m16n8k8 for .tf32: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); b0 (t, g), b1 (t + 4, g); d0..3 (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1); g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const float (&a)[4],
+                                         const float (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])),
+        "r"(__float_as_uint(b[0])), "r"(__float_as_uint(b[1])));
+}
+
+// out[m][n] = sum over k of A[m][k] B[k][n] for the PM x PN tile
+// (blockIdx.x, blockIdx.y % n_tiles) of sample blockIdx.z, k in the
+// range of split blockIdx.y / n_tiles. A is the df scratch: [m_pad][k_pad]
+// row-major, or with kTransA its transpose (stored [k_pad][m_pad]); its
+// padding is zero. B is [k_valid][c] row-major (phi or theta); rows past
+// k_valid and columns past c are zero-filled. out is [split][batch]
+// [m_valid][c].
+//
+// cp.async brings the fp32 tiles through a 3-stage ring; each warp runs
+// its 32 x 64 of the tile, splitting its fragments into TF32 (hi, lo) as
+// it loads them. 107.5 KB of shared memory and at most 128 registers a
+// thread, so two blocks (16 warps) share an SM.
+template <bool kTransA>
+__device__ __forceinline__ void product_tile(
+    const float* __restrict__ a, const float* __restrict__ bmat,
+    float* __restrict__ out, int m_valid, int m_pad, int k_pad, int k_valid,
+    int c, int k_per_split) {
+  extern __shared__ __align__(16) float psm[];
+  const int n_tiles = (c + PN - 1) / PN;
+  const int b = blockIdx.z;
+  const int m0 = blockIdx.x * PM;
+  const int n0 = (blockIdx.y % n_tiles) * PN;
+  const int split = blockIdx.y / n_tiles;
+  const int k_begin = split * k_per_split;
+  const int k_end = min(k_pad, k_begin + k_per_split);
+  const int n_steps = (k_end - k_begin) / PK;
+  const float* a_g = a + (size_t)b * m_pad * k_pad;
+  const float* b_g = bmat + (size_t)b * k_valid * c;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wm = (warp % 4) * 32;  // the warp's rows wm .. wm + 31
+  const int wn = (warp / 4) * 64;  // and columns wn .. wn + 63
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  auto fill = [&](int step) {
+    if (step < n_steps) {
+      float* as = psm + (step % PSTAGES) * STAGE_FLOATS;
+      float* bs = as + A_FLOATS;
+      const int k0 = k_begin + step * PK;
+      for (int i = threadIdx.x; i < PM * PK / 4; i += THREADS) {
+        if (kTransA) {  // PK rows of PM contiguous m
+          const int r = i / (PM / 4), c4 = i % (PM / 4);
+          cp_async16(as + r * AT_LD + 4 * c4,
+                     a_g + (size_t)(k0 + r) * m_pad + m0 + 4 * c4, 16);
+        } else {  // PM rows of PK contiguous k
+          const int r = i / (PK / 4), c4 = i % (PK / 4);
+          cp_async16(as + r * A_LD + 4 * c4,
+                     a_g + (size_t)(m0 + r) * k_pad + k0 + 4 * c4, 16);
+        }
+      }
+      for (int i = threadIdx.x; i < PK * PN / 4; i += THREADS) {
+        const int r = i / (PN / 4), c4 = i % (PN / 4);
+        const int k = k0 + r, n = n0 + 4 * c4;
+        const bool in = k < k_valid && n < c;
+        cp_async16(bs + r * B_LD + 4 * c4,
+                   in ? b_g + (size_t)k * c + n : b_g, in ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < PSTAGES - 1; ++st) fill(st);
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<PSTAGES - 2>();
+    __syncthreads();  // stage `step` landed; everyone is done with step - 1
+    fill(step + PSTAGES - 1);  // into the slot step - 1 used
+    const float* as = psm + (step % PSTAGES) * STAGE_FLOATS;
+    const float* bs = as + A_FLOATS;
+#pragma unroll
+    for (int kk = 0; kk < PK; kk += 8) {
+      float ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = wm + 16 * mi + g;
+        float x[4];
+        if (kTransA) {
+          x[0] = as[(kk + t) * AT_LD + r];
+          x[1] = as[(kk + t) * AT_LD + r + 8];
+          x[2] = as[(kk + t + 4) * AT_LD + r];
+          x[3] = as[(kk + t + 4) * AT_LD + r + 8];
+        } else {
+          x[0] = as[r * A_LD + kk + t];
+          x[1] = as[(r + 8) * A_LD + kk + t];
+          x[2] = as[r * A_LD + kk + t + 4];
+          x[3] = as[(r + 8) * A_LD + kk + t + 4];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 h = split_tf32(x[e]);
+          ahi[mi][e] = h.x;
+          alo[mi][e] = h.y;
+        }
+      }
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const int n = wn + 8 * ni + g;
+        const float2 y0 = split_tf32(bs[(kk + t) * B_LD + n]);
+        const float2 y1 = split_tf32(bs[(kk + t + 4) * B_LD + n]);
+        const float bhi[2] = {y0.x, y1.x}, blo[2] = {y0.y, y1.y};
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          // the tensor cores add a tile's products to their accumulator
+          // with truncation, an error relative to the accumulator; so each
+          // 8-deep step sums into a fresh one (the small terms first) and
+          // is added to the running sum by an fp32 add
+          float p[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(p, alo[mi], bhi);
+          mma_tf32(p, ahi[mi], blo);
+          mma_tf32(p, ahi[mi], bhi);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += p[e];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* o_g = out + ((size_t)split * gridDim.z + b) * m_valid * c;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int r = m0 + wm + 16 * mi + g;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      const int n = n0 + wn + 8 * ni + 2 * t;
+      if (n >= c) continue;  // c is even: n + 1 < c too
+      if (r < m_valid)
+        *reinterpret_cast<float2*>(o_g + (size_t)r * c + n) =
+            make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+      if (r + 8 < m_valid)
+        *reinterpret_cast<float2*>(o_g + (size_t)(r + 8) * c + n) =
+            make_float2(acc[mi][ni][2], acc[mi][ni][3]);
     }
   }
 }
+
+// dtheta = df phi: rows are queries, the depth runs over the keys.
+__global__ void __launch_bounds__(THREADS, 2)
+corr_dq_product_kernel(const float* __restrict__ df,
+                       const float* __restrict__ phi, float* __restrict__ out,
+                       int nq, int nk, int c, int k_per_split) {
+  product_tile<false>(df, phi, out, nq, round_up(nq, PAD), round_up(nk, PAD),
+                      nk, c, k_per_split);
+}
+
+// dphi = df^T theta: rows are keys, the depth runs over the queries.
+__global__ void __launch_bounds__(THREADS, 2)
+corr_dkv_product_kernel(const float* __restrict__ df,
+                        const float* __restrict__ theta,
+                        float* __restrict__ out, int nq, int nk, int c,
+                        int k_per_split) {
+  product_tile<true>(df, theta, out, nk, round_up(nk, PAD), round_up(nq, PAD),
+                     nq, c, k_per_split);
+}
+
+// ------------------------------------------------------------ split merge
 
 // out[i] = sum over s of part[s][i], in split order.
 __global__ void sum_splits_kernel(const float* __restrict__ part,
@@ -354,87 +559,107 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
 
 void sum_splits(const float* part, float* out, size_t n, int splits,
                 cudaStream_t st) {
-  const int threads = 256;
-  sum_splits_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+  sum_splits_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0,
                       st>>>(part, out, n, splits);
 }
 
-// Tiles of the reduction axis per split: splits <= tiles, none empty.
-int tiles_per_split(int n, int* splits) {
-  const int tiles = (n + T - 1) / T;
-  const int per = (tiles + *splits - 1) / *splits;
-  *splits = (tiles + per - 1) / per;
+// Units of `unit` rows per split of `n` rows: splits <= units, none empty.
+int per_split(int n, int unit, int* splits) {
+  const int units = (n + unit - 1) / unit;
+  const int per = (units + *splits - 1) / *splits;
+  *splits = (units + per - 1) / per;
   return per;
+}
+
+// The product of one kernel over a batch: out = df . bmat or df^T . bmat,
+// with the depth split `splits` ways (partials in `part`, merged in order).
+cudaError_t launch_product(bool trans, const float* df, const float* bmat,
+                           float* out, float* part, int batch, int nq, int nk,
+                           int c, int splits, cudaStream_t st) {
+  const int m_valid = trans ? nk : nq;
+  const int depth = round_up(trans ? nq : nk, PAD);
+  const int k_per_split = per_split(depth, PAD, &splits) * PAD;
+  const size_t smem = product_smem_bytes();
+  auto kernel = trans ? corr_dkv_product_kernel : corr_dq_product_kernel;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (set != cudaSuccess) return set;
+  float* dst = splits > 1 ? part : out;
+  const dim3 grid(round_up(m_valid, PAD) / PM, (c + PN - 1) / PN * splits,
+                  batch);
+  kernel<<<grid, THREADS, smem, st>>>(df, bmat, dst, nq, nk, c, k_per_split);
+  if (splits > 1) sum_splits(part, out, (size_t)batch * m_valid * c, splits, st);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Inputs (fp32, contiguous, on one device): theta [B, nq, c] and phi
-// [B, nk, c] 16-byte aligned, c % 64 == 0 and c <= 256; values [B, nk, 3];
-// m, l, dd, dsim [B, nq]; dout [B, nq, 3]. Writes dtheta [B, nq, c]. With
-// splits > 1, `part` is scratch of splits * B * nq * c floats. Returns
-// cudaGetLastError().
-extern "C" int devc_corr_bwd_dq(const void* theta, const void* phi,
-                                const void* values, const void* m,
-                                const void* l, const void* dd,
-                                const void* dsim, const void* dout,
-                                void* dtheta, void* part, int batch, int nq,
-                                int nk, int c, int splits, float inv_t,
-                                void* stream) {
-  if (c % 64 != 0 || c > MAX_C) return (int)cudaErrorInvalidValue;
-  const int per = tiles_per_split(nk, &splits);
-  const size_t smem = smem_bytes(c);
-  const cudaError_t set = cudaFuncSetAttribute(
-      corr_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (set != cudaSuccess) return (int)set;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* dst = splits > 1 ? static_cast<float*>(part)
-                          : static_cast<float*>(dtheta);
-  dim3 grid((nq + T - 1) / T, splits, batch);
-  corr_dq_kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const float*>(theta), static_cast<const float*>(phi),
-      static_cast<const float*>(values), static_cast<const float*>(m),
-      static_cast<const float*>(l), static_cast<const float*>(dd),
-      static_cast<const float*>(dsim), static_cast<const float*>(dout), dst,
-      nq, nk, c, per, inv_t);
-  if (splits > 1)
-    sum_splits(dst, static_cast<float*>(dtheta), (size_t)batch * nq * c,
-               splits, st);
-  return (int)cudaGetLastError();
-}
-
-// As devc_corr_bwd_dq; writes dphi [B, nk, c] and dvalues [B, nk, 3]. With
-// splits > 1, `part` is scratch of splits * B * nk * (c + 3) floats.
+// K3: theta [B, nq, c], phi [B, nk, c] (16-byte aligned, c % 32 == 0),
+// values [B, nk, 3], m, l, dd, dsim [B, nq], dout [B, nq, 3], all fp32 and
+// contiguous. Scratch: rows [B, nq', 8] and df [B, nq', nk'] (nq', nk' =
+// nq, nk rounded up to 128; df is written whole and left for
+// devc_corr_bwd_dq), and with splits > 1 part_v (splits * B * nk * 3
+// floats), with psplits > 1 part_p (psplits * B * nk * c). Writes dphi
+// [B, nk, c] and dvalues [B, nk, 3]. Returns cudaGetLastError() after the
+// last launch (or the first error).
 extern "C" int devc_corr_bwd_dkv(const void* theta, const void* phi,
                                  const void* values, const void* m,
                                  const void* l, const void* dd,
                                  const void* dsim, const void* dout,
-                                 void* dphi, void* dvalues, void* part,
+                                 void* rows, void* df, void* dphi,
+                                 void* dvalues, void* part_v, void* part_p,
                                  int batch, int nq, int nk, int c, int splits,
-                                 float inv_t, void* stream) {
-  if (c % 64 != 0 || c > MAX_C) return (int)cudaErrorInvalidValue;
-  const int per = tiles_per_split(nq, &splits);
-  const size_t smem = smem_bytes(c);
-  const cudaError_t set = cudaFuncSetAttribute(
-      corr_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (set != cudaSuccess) return (int)set;
+                                 int psplits, float inv_t, void* stream) {
+  if (c % CH != 0 || c <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t n_phi = (size_t)batch * nk * c;
-  const size_t n_v = (size_t)batch * nk * V;
-  float* dst_phi = splits > 1 ? static_cast<float*>(part)
-                              : static_cast<float*>(dphi);
-  float* dst_v = splits > 1 ? static_cast<float*>(part) + splits * n_phi
-                            : static_cast<float*>(dvalues);
-  dim3 grid((nk + T - 1) / T, splits, batch);
-  corr_dkv_kernel<<<grid, THREADS, smem, st>>>(
+  const int nq_pad = round_up(nq, PAD);
+  const int total = batch * nq_pad;
+  corr_dkv_rows_kernel<<<(total + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(dd), static_cast<const float*>(dsim),
+      static_cast<const float*>(dout), static_cast<float*>(rows), nq, nq_pad,
+      total);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int per = per_split(nq_pad, TQ, &splits);
+  const bool resident = c <= RESIDENT_MAX_C;
+  const size_t smem = scores_smem_bytes(resident, c);
+  auto kernel = resident ? corr_dkv_scores_kernel<true>
+                         : corr_dkv_scores_kernel<false>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  float* dv_dst = splits > 1 ? static_cast<float*>(part_v)
+                             : static_cast<float*>(dvalues);
+  const dim3 grid(round_up(nk, PAD) / TK, splits, batch);
+  kernel<<<grid, THREADS, smem, st>>>(
       static_cast<const float*>(theta), static_cast<const float*>(phi),
-      static_cast<const float*>(values), static_cast<const float*>(m),
-      static_cast<const float*>(l), static_cast<const float*>(dd),
-      static_cast<const float*>(dsim), static_cast<const float*>(dout),
-      dst_phi, dst_v, nq, nk, c, per, inv_t);
-  if (splits > 1) {
-    sum_splits(dst_phi, static_cast<float*>(dphi), n_phi, splits, st);
-    sum_splits(dst_v, static_cast<float*>(dvalues), n_v, splits, st);
-  }
-  return (int)cudaGetLastError();
+      static_cast<const float*>(values), static_cast<const float*>(rows),
+      static_cast<float*>(df), dv_dst, nq, nk, c, per, inv_t);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (splits > 1)
+    sum_splits(dv_dst, static_cast<float*>(dvalues), (size_t)batch * nk * V,
+               splits, st);
+  return (int)launch_product(true, static_cast<const float*>(df),
+                             static_cast<const float*>(theta),
+                             static_cast<float*>(dphi),
+                             static_cast<float*>(part_p), batch, nq, nk, c,
+                             psplits, st);
+}
+
+// K2b: dtheta [B, nq, c] = df phi from devc_corr_bwd_dkv's df [B, nq',
+// nk'] and phi [B, nk, c]. With splits > 1, `part` is scratch of
+// splits * B * nq * c floats. Returns cudaGetLastError().
+extern "C" int devc_corr_bwd_dq(const void* df, const void* phi,
+                                void* dtheta, void* part, int batch, int nq,
+                                int nk, int c, int splits, void* stream) {
+  if (c % CH != 0 || c <= 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_product(false, static_cast<const float*>(df),
+                             static_cast<const float*>(phi),
+                             static_cast<float*>(dtheta),
+                             static_cast<float*>(part), batch, nq, nk, c,
+                             splits, static_cast<cudaStream_t>(stream));
 }

@@ -4,10 +4,13 @@
     pallas_corr.py::_corr_fwd_kernel. Plain version:
     `correspondence.correspondence_warp_einsum` (and, emitting l,
     `correspondence.correspondence_fwd_plain`).
-  * `corr_bwd_dq`, `corr_bwd_dkv`: K2b and K3 (`csrc/corr_bwd.cu`), replace
-    pallas_corr.py::_corr_dq_kernel and ::_corr_dkv_kernel. `corr_bwd`
-    runs both after forming D = rowsum(dout * out) with a torch op, as JAX
-    does. Plain version: `correspondence.correspondence_bwd_plain`.
+  * `corr_bwd_dkv`, `corr_bwd_dq`: K3 and K2b (`csrc/corr_bwd.cu`), replace
+    pallas_corr.py::_corr_dkv_kernel and ::_corr_dq_kernel. K3 is the
+    backward's one score pass (dphi, dvalues, and df into a scratch
+    array); K2b forms dtheta from that df. `corr_bwd` forms D =
+    rowsum(dout * out) with a torch op, as JAX does, and runs both per
+    batch chunk of bounded scratch (`plan_batch_chunks`). Plain version:
+    `correspondence.correspondence_bwd_plain`.
   * `CorrFunction`: K1 forward (emitting l) and the two backward kernels
     as one `torch.autograd.Function`, the counterpart of devc_tpu's
     custom VJP (`_corr_pallas_diff`). On CPU tensors it runs the plain
@@ -30,7 +33,8 @@ from devc_tpu_torch.ops.correspondence import (
 from devc_tpu_torch.utils.build import check, load_kernels
 
 _TQ, _TK = 128, 128  # K1's query rows per block and keys per tile
-_TB = 64  # the backward kernels' rows per tile, both sides
+_TB = 128  # the backward's tile, both sides; the df scratch is padded to it
+SCRATCH_BUDGET = 2 << 30  # bytes of df scratch the backward may hold at once
 _MAX_SPLITS = 8  # K1 reloads its query tile once per key range
 
 
@@ -119,28 +123,52 @@ def corr_fwd(theta, phi, values, temperature: float, emit_l: bool = False):
 corr_fwd.launches = 0
 
 
-def _reduction_splits(blocks: int, tiles: int, device) -> int:
-    """Splits of the reduction axis for a backward kernel: one block fits
-    an SM, so take the split count (at most 8) that needs the fewest waves
-    per unit of work, the smaller on a tie."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def _splits(blocks: int, units: int, slots: int) -> int:
+    """Splits of a reduction axis of `units` tiles over blocks that fill
+    `slots` places on the card at once: the count (at most 8) that needs
+    the fewest waves per unit of work, the smaller on a tie."""
     best, best_cost = 1, None
-    for s in range(1, min(8, tiles) + 1):
-        cost = -(-blocks * s // sms) / s
+    for s in range(1, min(8, units) + 1):
+        cost = -(-blocks * s // slots) / s
         if best_cost is None or cost < best_cost:
             best, best_cost = s, cost
     return best
 
 
+def padded(n: int) -> int:
+    """Rows or columns of the df scratch for n queries or keys: n rounded
+    up to the backward's 128-row tiles."""
+    return -(-n // _TB) * _TB
+
+
+def df_scratch_bytes(nq: int, nk: int) -> int:
+    """Bytes of one sample's df scratch ([Nq', Nk'] fp32)."""
+    return 4 * padded(nq) * padded(nk)
+
+
+def plan_batch_chunks(b: int, nq: int, nk: int,
+                      budget: int = SCRATCH_BUDGET) -> list[tuple[int, int]]:
+    """Batch ranges [start, stop) that the backward runs one after the
+    other, each with a df scratch of at most `budget` bytes: equal chunks
+    of as many samples as fit, the last one shorter. Raises if one sample
+    does not fit."""
+    per_sample = df_scratch_bytes(nq, nk)
+    if per_sample > budget:
+        raise ValueError(
+            f"corr_bwd: one sample's df scratch ({per_sample} bytes for "
+            f"Nq = {nq}, Nk = {nk}) exceeds the budget of {budget} bytes")
+    step = min(b, budget // per_sample)
+    return [(i, min(b, i + step)) for i in range(0, b, step)]
+
+
 def _bwd_inputs(fn, theta, phi, values, m, l, dd, d_sim, d_out):
-    """Check the backward kernels' inputs; returns (b, nq, nk, c)."""
+    """Check the backward's inputs; returns (b, nq, nk, c)."""
     if theta.dim() != 3 or phi.dim() != 3:
         raise ValueError(f"{fn}: theta, phi must be [B, N, C]")
     b, nq, c = theta.shape
     nk = phi.shape[1]
-    if c % 64 or c > 256:
-        raise ValueError(f"{fn}: channels must be a multiple of 64 and at "
-                         f"most 256, got {c}")
+    if c % 32 or c == 0:
+        raise ValueError(f"{fn}: channels must be a multiple of 32, got {c}")
     if nq == 0 or nk == 0:
         raise ValueError(f"{fn}: empty query or key set")
     dev = theta.device
@@ -153,57 +181,98 @@ def _bwd_inputs(fn, theta, phi, values, m, l, dd, d_sim, d_out):
     return b, nq, nk, c
 
 
-def corr_bwd_dq(theta, phi, values, m, l, dd, d_sim, d_out,
-                temperature: float):
-    """K2b: dtheta [B, Nq, C] = sum over keys of df * phi, df recomputed
-    from K1's row max m and denominator l (see csrc/corr_bwd.cu). All
-    inputs fp32, contiguous, on one CUDA device; m, l, dd (= rowsum(d_out
-    * out)), d_sim are [B, Nq, 1]."""
-    b, nq, nk, c = _bwd_inputs("corr_bwd_dq", theta, phi, values, m, l, dd,
-                               d_sim, d_out)
-    lib = load_kernels()
-    dev = theta.device
-    dtheta = torch.empty_like(theta)
-    splits = _reduction_splits(b * -(-nq // _TB), -(-nk // _TB), dev)
-    part = (torch.empty((splits, b, nq, c), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
-    with torch.cuda.device(dev):
-        code = lib.devc_corr_bwd_dq(
-            theta.data_ptr(), phi.data_ptr(), values.data_ptr(),
-            m.data_ptr(), l.data_ptr(), dd.data_ptr(), d_sim.data_ptr(),
-            d_out.data_ptr(), dtheta.data_ptr(),
-            part.data_ptr() if part is not None else None,
-            b, nq, nk, c, splits, float(1.0 / temperature),
-            torch.cuda.current_stream().cuda_stream)
-    check(code, "corr_bwd_dq")
-    corr_bwd_dq.launches += 1
-    return dtheta
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def corr_bwd_dkv(theta, phi, values, m, l, dd, d_sim, d_out,
-                 temperature: float):
-    """K3: dphi [B, Nk, C] = sum over queries of df^T theta and dvalues
-    [B, Nk, 3] = attn^T d_out; inputs as corr_bwd_dq."""
-    b, nq, nk, c = _bwd_inputs("corr_bwd_dkv", theta, phi, values, m, l, dd,
-                               d_sim, d_out)
-    lib = load_kernels()
+def _launch_dkv(lib, theta, phi, values, m, l, dd, d_sim, d_out, df, dphi,
+                dvalues, inv_t: float, batch: int):
+    """K3 on one batch chunk (inputs checked by the caller): the score
+    pass (df into `df`, dvalues) and dphi = df^T theta. The reductions'
+    splits, and so the bits, depend on `batch` (the whole backward's),
+    not on the chunk."""
+    b, nq, c = theta.shape
+    nk = phi.shape[1]
     dev = theta.device
-    dphi = torch.empty_like(phi)
-    dvalues = torch.empty_like(values)
-    splits = _reduction_splits(b * -(-nk // _TB), -(-nq // _TB), dev)
-    part = (torch.empty((splits, b, nk, c + 3), dtype=torch.float32,
-                        device=dev) if splits > 1 else None)
+    sms = _sms(dev)
+    key_tiles, query_tiles = padded(nk) // _TB, padded(nq) // _TB
+    # the score pass runs one block per SM, the product two
+    splits = _splits(batch * key_tiles, query_tiles, sms)
+    psplits = _splits(batch * key_tiles * -(-c // _TB), query_tiles, 2 * sms)
+    rows = torch.empty((b, padded(nq), 8), dtype=torch.float32, device=dev)
+    part_v = (torch.empty((splits, b, nk, 3), dtype=torch.float32, device=dev)
+              if splits > 1 else None)
+    part_p = (torch.empty((psplits, b, nk, c), dtype=torch.float32,
+                          device=dev) if psplits > 1 else None)
+    ptr = lambda t: t.data_ptr() if t is not None else None
     with torch.cuda.device(dev):
         code = lib.devc_corr_bwd_dkv(
             theta.data_ptr(), phi.data_ptr(), values.data_ptr(),
             m.data_ptr(), l.data_ptr(), dd.data_ptr(), d_sim.data_ptr(),
-            d_out.data_ptr(), dphi.data_ptr(), dvalues.data_ptr(),
-            part.data_ptr() if part is not None else None,
-            b, nq, nk, c, splits, float(1.0 / temperature),
+            d_out.data_ptr(), rows.data_ptr(), df.data_ptr(),
+            dphi.data_ptr(), dvalues.data_ptr(), ptr(part_v), ptr(part_p),
+            b, nq, nk, c, splits, psplits, inv_t,
             torch.cuda.current_stream().cuda_stream)
     check(code, "corr_bwd_dkv")
+
+
+def _launch_dq(lib, df, phi, dtheta, batch: int):
+    """K2b on one batch chunk: dtheta = df phi; splits as _launch_dkv."""
+    b, nq, c = dtheta.shape
+    nk = phi.shape[1]
+    dev = phi.device
+    splits = _splits(batch * padded(nq) // _TB * -(-c // _TB),
+                     padded(nk) // _TB, 2 * _sms(dev))
+    part = (torch.empty((splits, b, nq, c), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    with torch.cuda.device(dev):
+        code = lib.devc_corr_bwd_dq(
+            df.data_ptr(), phi.data_ptr(), dtheta.data_ptr(),
+            part.data_ptr() if part is not None else None, b, nq, nk, c,
+            splits, torch.cuda.current_stream().cuda_stream)
+    check(code, "corr_bwd_dq")
+
+
+def _check_df(fn, df, b, nq, nk, device):
+    _check_input("df", df, (b, padded(nq), padded(nk)), fn, device)
+
+
+def corr_bwd_dkv(theta, phi, values, m, l, dd, d_sim, d_out,
+                 temperature: float, df):
+    """K3, the backward's one score pass: dphi [B, Nk, C] = df^T theta and
+    dvalues [B, Nk, 3] = attn^T d_out, with df and attn formed from the
+    recomputed scores, K1's row max m and denominator l (see
+    csrc/corr_bwd.cu). Writes df into `df`, fp32 [B, padded(Nq),
+    padded(Nk)] (zero outside the valid rows and keys), for corr_bwd_dq.
+    All inputs fp32, contiguous, on one CUDA device, C a multiple of 32;
+    m, l, dd (= rowsum(d_out * out)), d_sim are [B, Nq, 1]."""
+    b, nq, nk, c = _bwd_inputs("corr_bwd_dkv", theta, phi, values, m, l, dd,
+                               d_sim, d_out)
+    _check_df("corr_bwd_dkv", df, b, nq, nk, theta.device)
+    dphi = torch.empty_like(phi)
+    dvalues = torch.empty_like(values)
+    _launch_dkv(load_kernels(), theta, phi, values, m, l, dd, d_sim, d_out,
+                df, dphi, dvalues, float(1.0 / temperature), b)
     corr_bwd_dkv.launches += 1
     return dphi, dvalues
+
+
+def corr_bwd_dq(df, phi, nq: int):
+    """K2b: dtheta [B, nq, C] = df phi, from the df that corr_bwd_dkv wrote
+    ([B, padded(nq), padded(Nk)]) and phi [B, Nk, C]; on the tensor
+    cores, no score recomputed."""
+    if not isinstance(phi, torch.Tensor) or phi.dim() != 3:
+        raise ValueError("corr_bwd_dq: phi must be a [B, N, C] tensor")
+    b, nk, c = phi.shape
+    if c % 32 or c == 0:
+        raise ValueError(f"corr_bwd_dq: channels must be a multiple of 32, "
+                         f"got {c}")
+    _check_input("phi", phi, (b, nk, c), "corr_bwd_dq")
+    _check_df("corr_bwd_dq", df, b, nq, nk, phi.device)
+    dtheta = torch.empty((b, nq, c), dtype=torch.float32, device=phi.device)
+    _launch_dq(load_kernels(), df, phi, dtheta, b)
+    corr_bwd_dq.launches += 1
+    return dtheta
 
 
 corr_bwd_dq.launches = 0
@@ -211,12 +280,34 @@ corr_bwd_dkv.launches = 0
 
 
 def corr_bwd(theta, phi, values, sim, l, out, d_out, d_sim,
-             temperature: float):
+             temperature: float, scratch_budget: int = SCRATCH_BUDGET):
     """Gradients (dtheta, dphi, dvalues) of K1's (out, sim) on the card:
-    D = rowsum(d_out * out) as a torch op, then K2b and K3."""
+    D = rowsum(d_out * out) as a torch op, then per batch chunk
+    (`plan_batch_chunks`) K3's score pass and dphi, and K2b's dtheta from
+    the same df scratch. One call counts one launch of each kernel,
+    whatever the number of chunks, and gives the same bits whatever the
+    budget."""
     dd = (d_out * out).sum(dim=-1, keepdim=True)
-    args = (theta, phi, values, sim, l, dd, d_sim, d_out, temperature)
-    return (corr_bwd_dq(*args), *corr_bwd_dkv(*args))
+    b, nq, nk, c = _bwd_inputs("corr_bwd", theta, phi, values, sim, l, dd,
+                               d_sim, d_out)
+    chunks = plan_batch_chunks(b, nq, nk, scratch_budget)
+    lib = load_kernels()
+    dev = theta.device
+    df = torch.empty((chunks[0][1], padded(nq), padded(nk)),
+                     dtype=torch.float32, device=dev)
+    dtheta = torch.empty_like(theta)
+    dphi = torch.empty_like(phi)
+    dvalues = torch.empty_like(values)
+    inv_t = float(1.0 / temperature)
+    for b0, b1 in chunks:
+        part = slice(b0, b1)
+        _launch_dkv(lib, theta[part], phi[part], values[part], sim[part],
+                    l[part], dd[part], d_sim[part], d_out[part],
+                    df[:b1 - b0], dphi[part], dvalues[part], inv_t, b)
+        _launch_dq(lib, df[:b1 - b0], phi[part], dtheta[part], b)
+    corr_bwd_dkv.launches += 1
+    corr_bwd_dq.launches += 1
+    return dtheta, dphi, dvalues
 
 
 class CorrFunction(torch.autograd.Function):

@@ -40,12 +40,11 @@ _SIGNATURES = {
     # src, guide, out, h, w, axis, lam, sigma, stream
     "devc_smooth_pass": ([_P] * 3 + [_I] * 3 + [ctypes.c_float] * 2 + [_P],
                          _I),
-    # theta, phi, values, m, l, dd, dsim, dout, dtheta, part, batch, nq, nk,
-    # c, splits, inv_t, stream
-    "devc_corr_bwd_dq": ([_P] * 10 + [_I] * 5 + [ctypes.c_float, _P], _I),
-    # theta, phi, values, m, l, dd, dsim, dout, dphi, dvalues, part, batch,
-    # nq, nk, c, splits, inv_t, stream
-    "devc_corr_bwd_dkv": ([_P] * 11 + [_I] * 5 + [ctypes.c_float, _P], _I),
+    # df, phi, dtheta, part, batch, nq, nk, c, splits, stream
+    "devc_corr_bwd_dq": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    # theta, phi, values, m, l, dd, dsim, dout, rows, df, dphi, dvalues,
+    # part_v, part_p, batch, nq, nk, c, splits, psplits, inv_t, stream
+    "devc_corr_bwd_dkv": ([_P] * 14 + [_I] * 6 + [ctypes.c_float, _P], _I),
     "devc_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -28,8 +28,10 @@ from devc_tpu_torch.ops.correspondence import (
 T = 0.01
 TOL = dict(atol=5e-3, rtol=1e-3)
 # test_pallas_grad.py's shape, a ragged batch (neither side a multiple of
-# the 128 tiles) and C = 256
-SHAPES = [(1, 160, 224, 32), (2, 200, 130, 64), (1, 70, 90, 256)]
+# the 128 tiles), C = 256, and C = 96 (not a multiple of 64: a last
+# 32-channel chunk in the kernels)
+SHAPES = [(1, 160, 224, 32), (2, 200, 130, 64), (1, 70, 90, 256),
+          (2, 90, 150, 96)]
 
 
 def _case(b, nq, nk, c, seed=0):
@@ -105,7 +107,7 @@ def test_bwd_plain_routes_dsim_to_every_tie():
         np.testing.assert_allclose(dphi[0, k].numpy(), theta[0, 0], rtol=1e-6)
 
 
-@pytest.mark.parametrize("b,nq,nk,c", SHAPES[:2])
+@pytest.mark.parametrize("b,nq,nk,c", SHAPES[:2] + SHAPES[3:])
 def test_corr_function_cpu_matches_devc_tpu_custom_vjp(b, nq, nk, c):
     """CorrFunction on CPU tensors (plain forward with l, plain backward)
     against devc_tpu's differentiable Pallas kernel in interpret mode, and
@@ -137,8 +139,41 @@ def test_backward_kernel_wrappers_refuse_cpu_tensors():
     theta, phi, values, d_out, d_sim = (torch.from_numpy(x)
                                         for x in _case(1, 8, 8, 64))
     out, sim, l = correspondence_fwd_plain(theta, phi, values, T)
-    for fn in (cuda_corr.corr_bwd_dq, cuda_corr.corr_bwd_dkv):
+    df = torch.zeros(1, cuda_corr.padded(8), cuda_corr.padded(8))
+    calls = ((cuda_corr.corr_bwd_dkv,
+              (theta, phi, values, sim, l, sim, d_sim, d_out, T, df)),
+             (cuda_corr.corr_bwd_dq, (df, phi, 8)))
+    for fn, args in calls:
         before = fn.launches
         with pytest.raises(ValueError, match="CUDA"):
-            fn(theta, phi, values, sim, l, sim, d_sim, d_out, T)
+            fn(*args)
         assert fn.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_corr.corr_bwd(theta, phi, values, sim, l, out, d_out, d_sim, T)
+
+
+@pytest.mark.parametrize("b,nq,nk,budget_samples", [
+    (16, 5184, 5184, 16), (16, 5184, 5184, 5), (3, 130, 70, 1),
+    (1, 20736, 20736, 1), (7, 1, 1, 3)])
+def test_plan_batch_chunks_covers_the_batch_within_the_budget(
+        b, nq, nk, budget_samples):
+    """Chunks are consecutive, cover [0, b), none is empty, and each
+    chunk's df scratch fits the budget; a budget below one sample raises."""
+    per = cuda_corr.df_scratch_bytes(nq, nk)
+    assert per == 4 * (-(-nq // 128) * 128) * (-(-nk // 128) * 128)
+    budget = per * budget_samples + per // 2
+    chunks = cuda_corr.plan_batch_chunks(b, nq, nk, budget)
+    assert chunks[0][0] == 0 and chunks[-1][1] == b
+    assert all(prev[1] == nxt[0] for prev, nxt in zip(chunks, chunks[1:]))
+    assert all(stop > start for start, stop in chunks)
+    assert all((stop - start) * per <= budget for start, stop in chunks)
+    assert len(chunks) == -(-b // min(b, budget_samples))
+    with pytest.raises(ValueError, match="exceeds the budget"):
+        cuda_corr.plan_batch_chunks(b, nq, nk, per - 1)
+
+
+def test_default_budget_holds_the_training_and_full_resolution_shapes():
+    """The training shape (B = 16, N = 5184) runs in one chunk and one
+    sample at N = 20736 fits, under the default 2 GiB."""
+    assert cuda_corr.plan_batch_chunks(16, 5184, 5184) == [(0, 16)]
+    assert cuda_corr.plan_batch_chunks(1, 20736, 20736) == [(0, 1)]

@@ -261,11 +261,15 @@ def _bwd_case(b, nq, nk, c, device, seed=0):
     return theta, phi, values, sim, l, out, d_out, d_sim
 
 
-# aligned, ragged (both sides, tiles of 64), batched, one sample at the
-# training N (the reduction axis split across blocks), and C = 64
+# aligned, ragged (both sides, tiles of 128), batched, one sample at the
+# training N (the reductions split across blocks), C = 64, and C = 32, 96
+# and 512 at ragged N (a last 32-channel chunk; 512 streams the key tile
+# through the ring)
 @pytest.mark.parametrize("b,nq,nk,c", [(1, 256, 256, 256), (1, 200, 312, 256),
                                        (3, 130, 70, 256), (1, 5184, 5184, 256),
-                                       (2, 33, 65, 64), (1, 1, 1, 256)])
+                                       (2, 33, 65, 64), (1, 1, 1, 256),
+                                       (1, 1000, 1000, 32), (2, 130, 4500, 96),
+                                       (1, 300, 520, 512)])
 def test_corr_bwd_matches_plain(cuda, b, nq, nk, c):
     args = _bwd_case(b, nq, nk, c, cuda)
     dq, dkv = cuda_corr.corr_bwd_dq.launches, cuda_corr.corr_bwd_dkv.launches
@@ -276,6 +280,60 @@ def test_corr_bwd_matches_plain(cuda, b, nq, nk, c):
     want = correspondence_bwd_plain(*args, 0.01)
     for name, g, w in zip(("dtheta", "dphi", "dvalues"), got, want):
         assert g.shape == w.shape, name
+        torch.testing.assert_close(g, w, atol=5e-3, rtol=1e-3, msg=name)
+
+
+@pytest.mark.parametrize("b,nq,nk,c", [(2, 200, 312, 256), (1, 5184, 5184, 256),
+                                       (2, 130, 4500, 96)])
+def test_corr_bwd_is_deterministic(cuda, b, nq, nk, c):
+    """Two calls on the same inputs give bit-equal outputs: no atomics,
+    split reductions merged in split order."""
+    args = _bwd_case(b, nq, nk, c, cuda)
+    first = cuda_corr.corr_bwd(*args, 0.01)
+    second = cuda_corr.corr_bwd(*args, 0.01)
+    for name, x, y in zip(("dtheta", "dphi", "dvalues"), first, second):
+        assert torch.equal(x, y), name
+
+
+def test_corr_bwd_in_batch_chunks(cuda):
+    """A scratch budget of two samples runs a batch of 5 in three chunks:
+    one launch count per backward, the same bits as one chunk, and the
+    plain version's gradients."""
+    b, nq, nk, c = 5, 300, 200, 64
+    args = _bwd_case(b, nq, nk, c, cuda)
+    budget = 2 * cuda_corr.df_scratch_bytes(nq, nk)
+    assert len(cuda_corr.plan_batch_chunks(b, nq, nk, budget)) == 3
+    dq, dkv = cuda_corr.corr_bwd_dq.launches, cuda_corr.corr_bwd_dkv.launches
+    chunked = cuda_corr.corr_bwd(*args, 0.01, scratch_budget=budget)
+    assert (cuda_corr.corr_bwd_dq.launches, cuda_corr.corr_bwd_dkv.launches) \
+        == (dq + 1, dkv + 1)
+    whole = cuda_corr.corr_bwd(*args, 0.01)
+    want = correspondence_bwd_plain(*args, 0.01)
+    for name, x, y, w in zip(("dtheta", "dphi", "dvalues"), chunked, whole,
+                             want):
+        assert torch.equal(x, y), name
+        torch.testing.assert_close(x, w, atol=5e-3, rtol=1e-3, msg=name)
+
+
+def test_corr_bwd_kernels_alone(cuda):
+    """The two wrappers called one after the other, as corr_bwd does for
+    one chunk: K3 writes df (zero outside the valid rows and keys), K2b
+    reads it."""
+    b, nq, nk, c = 2, 200, 130, 96
+    theta, phi, values, sim, l, out, d_out, d_sim = _bwd_case(b, nq, nk, c,
+                                                              cuda)
+    dd = (d_out * out).sum(dim=-1, keepdim=True)
+    df = torch.full((b, cuda_corr.padded(nq), cuda_corr.padded(nk)), 7.0,
+                    device=cuda)
+    dphi, dvalues = cuda_corr.corr_bwd_dkv(theta, phi, values, sim, l, dd,
+                                           d_sim, d_out, 0.01, df)
+    dtheta = cuda_corr.corr_bwd_dq(df, phi, nq)
+    torch.cuda.synchronize()
+    assert not df[:, nq:].any() and not df[:, :, nk:].any()
+    want = correspondence_bwd_plain(theta, phi, values, sim, l, out, d_out,
+                                    d_sim, 0.01)
+    for name, g, w in zip(("dtheta", "dphi", "dvalues"),
+                          (dtheta, dphi, dvalues), want):
         torch.testing.assert_close(g, w, atol=5e-3, rtol=1e-3, msg=name)
 
 
