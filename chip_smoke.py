@@ -38,10 +38,24 @@ line {"ok": true, "device": {...}}:
   7. layers    one frame's stages timed one by one with CUDA events.
   8. cli       python -m devc_tpu_torch.cli.colorize on the frames written
                as PNGs, when Pillow is installed (else says it skipped).
-  9. train_parity  one GAN training step at 64x128, batch 2, on the card
+  9. serve     the serving path: K2's batched pass (B = 4 guides, B = 3
+               one shared guide, 432x768, both axes) and K1 at B = 4 and
+               3 (N = 5184, T = 1e-10) vs their plain versions, with ms,
+               bounds and SDPA; ClipBatchScheduler at 432x768 (4 slots,
+               6 jobs of 5-9 PNG frames, one with a corrupt exemplar that
+               fails alone): frame counts, each job's frame 0 within +-1
+               of the clip alone, one K1 and six K2 launches per batched
+               step, ms per step, frames/s, peak memory; a device_resize
+               run with one job at 540x960; colorize_video_multi with
+               R = 3 (launches, frame 0 within +-1 of serial runs); scan
+               mode (chunk 4) bit-equal to stream, per-frame ms of both;
+               python -m devc_tpu_torch.cli.serve as a subprocess (ready,
+               ping, a job, a batch, shutdown, exit 0); a video file when
+               cv2 imports.
+ 10. train_parity  one GAN training step at 64x128, batch 2, on the card
                (kernels) against the same step on the CPU in fp32 and in
                float64 (plain versions), same weights and batch.
- 10. train     the training main path: train_step_u8 at batch 16, 216x384,
+ 11. train     the training main path: train_step_u8 at batch 16, 216x384,
                full width, TrainConfig defaults (T = 0.01, luminance noise
                2.0, remat), 1 warm-up + 4 timed steps: ms per step, peak
                memory, every loss, weights moved, kernel launch counts
@@ -627,7 +641,6 @@ def phase_main(models, seed: int, card: str):
     import numpy as np
     import torch
 
-    from devc_tpu_torch.ops import cuda_corr, fgs
     from devc_tpu_torch.pipeline.video import colorize_frames
 
     ref, *frames = textured_frames(seed, N_FRAMES + 1, (H, W))
@@ -640,17 +653,13 @@ def phase_main(models, seed: int, card: str):
         outs.append(rgb)
 
     torch.cuda.reset_peak_memory_stats()
-    cuda_corr.corr_fwd.launches = 0
-    fgs.smooth_pass.launches = 0
-    fgs.tridiag_pcr.launches = 0
+    _counts_zero()
     t0 = time.perf_counter()
     n = colorize_frames(models, frames, ref, temperature=1e-10, wls=True,
                         on_frame=on_frame)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"corr_fwd": cuda_corr.corr_fwd.launches,
-                "smooth_pass": fgs.smooth_pass.launches,
-                "tridiag_pcr": fgs.tridiag_pcr.launches}
+    launches = _counts()
 
     assert n == N_FRAMES and len(outs) == N_FRAMES, n
     for rgb in outs:
@@ -786,6 +795,505 @@ def phase_cli(frames, ref, seed: int, main_outs):
              stdout=res.stdout.strip().splitlines()[-1:])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the serving path: K2 over a batch of 432x768 images, (B, shared guide):
+# 4 clip slots with a guide each, 3 exemplars against one frame's guide
+K2_BATCHED = ((4, False), (3, True))
+# K1 on the serving path at N = 5184: (B, theta shared): 4 clip slots; 3
+# exemplars against one frame's embedding (broadcast, then contiguous)
+K1_SERVE = ((4, False), (3, True))
+SERVE_SLOTS = 4
+SERVE_JOB_FRAMES = (5, 9, 6, 8, 7, 5)  # one clip per job
+SERVE_BAD_JOB = 3  # this job's exemplar is corrupt: it fails alone
+RESIZE_SRC = (540, 960)  # the second run's odd job: 1.25x the target
+
+
+def _serve_kernels(rng, dev):
+    """K2's batched pass and K1 at the serving path's batches against
+    their plain versions; returns (K2 rows, K1 rows)."""
+    import numpy as np
+    import torch
+
+    from devc_tpu_torch.ops import fgs
+    from devc_tpu_torch.ops.correspondence import correspondence_warp_einsum
+    from devc_tpu_torch.ops.cuda_corr import corr_fwd
+
+    k2 = []
+    for b, shared in K2_BATCHED:
+        for axis in (1, 0):
+            src = torch.from_numpy(
+                ((rng.rand(b, H, W, 2) - 0.5) * 200).astype(np.float32)).to(dev)
+            guide = np.floor(rng.rand(1 if shared else b, H, W) * 256)
+            guide[..., W // 2:] = np.floor(guide[..., W // 2:] / 8)
+            guide = torch.from_numpy(guide.astype(np.float32)).to(dev)
+            guide = guide[0] if shared else guide
+            call = lambda: fgs.smooth_pass(src, guide, FGS_LAM,
+                                           fgs.SIGMA_COLOR, axis)
+            x = call()
+            want = fgs.smooth_pass_plain(src, guide, FGS_LAM, fgs.SIGMA_COLOR,
+                                         axis)
+            alone = [fgs.smooth_pass(src[i], guide if shared else guide[i],
+                                     FGS_LAM, fgs.SIGMA_COLOR, axis)
+                     for i in range(b)]
+            torch.cuda.synchronize()
+            err = (x - want).abs()
+            scale = want.abs().max().item()
+            case = {"check": "k2_batched", "kernel": "smooth_pass", "b": b,
+                    "guide": "shared" if shared else "per image", "h": H,
+                    "w": W, "axis": axis, "max_abs_err": err.max().item(),
+                    "max_rel_err": err.max().item() / scale,
+                    "each_image_vs_its_own_launch": "bit-equal"}
+            assert bool((err <= 1e-4 * want.abs() + 1e-5 * scale).all()), case
+            assert all(torch.equal(x[i], a) for i, a in enumerate(alone)), \
+                "a batched image differs from its own launch"
+            case["ms"] = cuda_ms(call, queued=True)
+            case["plain_ms"] = cuda_ms(lambda: fgs.smooth_pass_plain(
+                src, guide, FGS_LAM, fgs.SIGMA_COLOR, axis), queued=True)
+            case["one_image_ms"] = cuda_ms(lambda: fgs.smooth_pass(
+                src[0], guide if shared else guide[0], FGS_LAM,
+                fgs.SIGMA_COLOR, axis), queued=True)
+            # src read and the result written once (16 B a pixel), the
+            # guide read once: per image, or once for the batch
+            nbytes = 16 * b * H * W + 4 * H * W * (1 if shared else b)
+            case.update(bound(30 * b * H * W, nbytes))
+            emit("serve", **case)
+            k2.append(case)
+    k1 = []
+    n = K1_SIZES[0]
+    for b, shared in K1_SERVE:
+        theta, phi, values = _k1_inputs(rng, b, n, dev)
+        if shared:
+            theta = theta[:1].expand(b, n, 256).contiguous()
+        out, sim, _ = corr_fwd(theta, phi, values, 1e-10)
+        want_out, want_sim = correspondence_warp_einsum(theta, phi, values,
+                                                        1e-10)
+        torch.cuda.synchronize()
+        sim_err = (sim - want_sim).abs().max().item()
+        differing = int(((out - want_out).abs().amax(dim=-1) > 1e-4).sum())
+        case = {"check": "k1_batched", "kernel": "corr_fwd", "b": b, "n": n,
+                "c": 256, "temperature": 1e-10,
+                "theta": "one frame's, repeated" if shared else "per slot",
+                "sim_max_abs_err": sim_err, "rows_differing": differing,
+                "max_abs_err": sim_err}
+        assert sim_err <= 1e-5 and differing == 0, case
+        case["ms"] = cuda_ms(lambda: corr_fwd(theta, phi, values, 1e-10),
+                             queued=True)
+        case["plain_ms"] = cuda_ms(lambda: correspondence_warp_einsum(
+            theta, phi, values, 1e-10), queued=True)
+        case["library_ms"], case["library_call"] = sdpa_ms(
+            theta, phi, values, 1e-10)
+        flop = 2 * b * n * n * 259
+        case.update(bound(flop, 4 * b * n * (2 * 256 + 3 + 5)))
+        case["gflop_per_s"] = flop / case["ms"] / 1e6
+        emit("serve", **case)
+        k1.append(case)
+        del theta, phi, values, out, sim, want_out, want_sim
+        torch.cuda.empty_cache()
+    return k2, k1
+
+
+def _counts_zero():
+    from devc_tpu_torch.ops import cuda_corr, fgs
+
+    cuda_corr.corr_fwd.launches = 0
+    fgs.smooth_pass.launches = 0
+    fgs.tridiag_pcr.launches = 0
+
+
+def _counts():
+    from devc_tpu_torch.ops import cuda_corr, fgs
+
+    return {"corr_fwd": cuda_corr.corr_fwd.launches,
+            "smooth_pass": fgs.smooth_pass.launches,
+            "tridiag_pcr": fgs.tridiag_pcr.launches}
+
+
+def _alone_frame0(models, frames, ref):
+    """Frame 0 of colorize_frames on (frames, ref) alone."""
+    from devc_tpu_torch.pipeline.video import colorize_frames
+
+    got = []
+    colorize_frames(models, frames[:1], ref, lambda i, a: got.append(a))
+    return got[0]
+
+
+def _diff(a, b) -> dict:
+    import numpy as np
+
+    d = np.abs(a.astype(int) - b.astype(int))
+    return {"max": int(d.max()), "share": float((d > 0).mean())}
+
+
+def _save_clip(path, frames):
+    from PIL import Image
+
+    os.makedirs(path)
+    for i, f in enumerate(frames):
+        Image.fromarray(f).save(os.path.join(path, f"{i:05d}.png"))
+
+
+def _serve_scheduler(models, tmp, seed, card):
+    """ClipBatchScheduler at 432x768: the serving path's main run (the
+    kernels' `serve` launches), then a device_resize run with a job at
+    another source size. Returns (the jobs, the main run's launch
+    counts)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from devc_tpu_torch.parallel.inference import batched_frame_step
+    from devc_tpu_torch.pipeline.scheduler import ClipBatchScheduler
+    from devc_tpu_torch.pipeline.video import (
+        _device_ref_features_multi,
+        frame_step,
+    )
+
+    jobs = []
+    for j, n in enumerate(SERVE_JOB_FRAMES):
+        ref, *frames = textured_frames(seed + 100 + j, n + 1, (H, W))
+        clip = os.path.join(tmp, f"job{j}")
+        _save_clip(clip, frames)
+        ref_path = os.path.join(tmp, f"job{j}_ref.png")
+        if j == SERVE_BAD_JOB:
+            with open(ref_path, "wb") as f:
+                f.write(b"not an image")
+        else:
+            Image.fromarray(ref).save(ref_path)
+        jobs.append(dict(clip=clip, ref_path=ref_path, ref=ref,
+                         frames=frames, out=os.path.join(tmp, f"out{j}")))
+
+    def run(sched, picked, tag):
+        for j in picked:
+            sched.submit(jobs[j]["clip"], jobs[j]["ref_path"],
+                         jobs[j]["out"] + tag)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _counts_zero()
+        t0 = time.perf_counter()
+        results = sched.run()
+        torch.cuda.synchronize()
+        return results, _counts(), time.perf_counter() - t0
+
+    sched = ClipBatchScheduler(models, image_size=(H, W), slots=SERVE_SLOTS,
+                               out_ext="png")
+    results, launches, wall = run(sched, range(len(jobs)), "")
+    serve_launches = dict(launches)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    steps = sched.steps
+    frame0 = {}
+    for j, (job, r) in enumerate(zip(jobs, results)):
+        if j == SERVE_BAD_JOB:
+            assert "error" in r, r
+            continue
+        assert r.get("frames") == len(job["frames"]), (j, r)
+        got = np.asarray(Image.open(r["outputs"][0]))
+        job["alone0"] = _alone_frame0(models, job["frames"], job["ref"])
+        frame0[j] = _diff(got, job["alone0"])
+    good_frames = sum(len(j["frames"]) for i, j in enumerate(jobs)
+                      if i != SERVE_BAD_JOB)
+    # the batched step alone, at B = slots, on device-resident inputs, and
+    # the one-frame step beside it (host launch cost included in both)
+    dev = models.device
+    refs = np.stack([jobs[j]["ref"] for j in (0, 1, 2, 4)])
+    batch = torch.from_numpy(np.stack([jobs[j]["frames"][0]
+                                       for j in (0, 1, 2, 4)])).to(dev)
+    _, state = _device_ref_features_multi(models, torch.from_numpy(refs).to(dev))
+    last = torch.zeros((SERVE_SLOTS, H // 2, W // 2, 3), device=dev)
+    step_ms = cuda_ms(lambda: batched_frame_step(models, batch, last, state),
+                      reps=5)
+    one = {k: v[:1] for k, v in state.items()}
+    frame_ms = cuda_ms(lambda: frame_step(models, batch[0], last[:1], one),
+                       reps=5)
+    case = {"check": "scheduler", "slots": SERVE_SLOTS, "image_size": [H, W],
+            "jobs": len(jobs), "job_frames": list(SERVE_JOB_FRAMES),
+            "failed_job": {SERVE_BAD_JOB: results[SERVE_BAD_JOB]},
+            "frames": good_frames, "steps": steps, "launches": launches,
+            "frame0_vs_alone": frame0, "wall_s": wall,
+            "wall_ms_per_step": wall * 1e3 / steps,
+            "wall_frames_per_s": good_frames / wall,
+            "step_ms_b4": step_ms, "step_frames_per_s": 1e3 * SERVE_SLOTS
+            / step_ms, "frame_step_ms_b1": frame_ms, "peak_mem_mib": peak,
+            "card": card}
+    emit("serve", **case)
+    # one K1 launch and six K2 launches per batched step
+    assert launches == {"corr_fwd": steps, "smooth_pass": 6 * steps,
+                        "tridiag_pcr": 0}, (launches, steps)
+    assert all(d["max"] <= 1 for d in frame0.values()), frame0
+
+    # the same good jobs written as JPEG (the server's default): how much
+    # of the wall time above is PNG encoding
+    good = [j for j in range(len(jobs)) if j != SERVE_BAD_JOB]
+    sched = ClipBatchScheduler(models, image_size=(H, W), slots=SERVE_SLOTS)
+    results, jpg_launches, jpg_wall = run(sched, good, "_jpg")
+    assert [r["frames"] for r in results] == [len(jobs[j]["frames"])
+                                              for j in good], results
+    emit("serve", check="scheduler_jpeg", jobs=len(good), frames=good_frames,
+         steps=sched.steps, launches=jpg_launches, wall_s=jpg_wall,
+         wall_ms_per_step=jpg_wall * 1e3 / sched.steps,
+         wall_frames_per_s=good_frames / jpg_wall, card=card)
+
+    # device_resize: two jobs at 432x768 and one at RESIZE_SRC, raw frames
+    # zero-padded to the largest, the CenterPad in the step
+    from devc_tpu_torch.data.transforms import centerpad_np
+
+    ref, *big = textured_frames(seed + 200, 6, RESIZE_SRC)
+    jobs.append(dict(clip=os.path.join(tmp, "big"),
+                     ref_path=os.path.join(tmp, "big_ref.png"),
+                     ref=centerpad_np(ref, (H, W)), frames=big,
+                     out=os.path.join(tmp, "outbig")))
+    _save_clip(jobs[-1]["clip"], big)
+    Image.fromarray(ref).save(jobs[-1]["ref_path"])
+    sched = ClipBatchScheduler(models, image_size=(H, W), slots=SERVE_SLOTS,
+                               out_ext="png", device_resize=True)
+    picked = (0, 1, len(jobs) - 1)
+    results, launches, wall = run(sched, picked, "_dr")
+    frame0 = {}
+    for j, r in zip(picked, results):
+        assert r.get("frames") == len(jobs[j]["frames"]), (j, r)
+        got = np.asarray(Image.open(r["outputs"][0]))
+        assert got.shape == (H, W, 3), got.shape
+        if j == len(jobs) - 1:  # resized: against the host CenterPad's run
+            want = _alone_frame0(models, [centerpad_np(f, (H, W))
+                                          for f in big[:1]], jobs[j]["ref"])
+            mse = np.mean((got.astype(float) - want) ** 2)
+            frame0[j] = dict(_diff(got, want), psnr=99.0 if mse == 0 else
+                             10 * np.log10(255.0 ** 2 / mse))
+        else:  # identity plans: as the host path
+            frame0[j] = _diff(got, jobs[j]["alone0"])
+    case = {"check": "scheduler_device_resize", "slots": SERVE_SLOTS,
+            "sources": [[H, W], [H, W], list(RESIZE_SRC)],
+            "frames": [r["frames"] for r in results], "steps": sched.steps,
+            "launches": launches, "frame0_vs_host_path": frame0,
+            "wall_s": wall, "card": card}
+    emit("serve", **case)
+    assert launches == {"corr_fwd": sched.steps,
+                        "smooth_pass": 6 * sched.steps,
+                        "tridiag_pcr": 0}, launches
+    assert all(frame0[j]["max"] <= 1 for j in picked[:2]), frame0
+    assert frame0[picked[2]]["psnr"] > 30.0, frame0
+    return jobs, serve_launches
+
+
+def _serve_multi_and_scan(models, tmp, jobs, frames, ref, main_outs, card):
+    """Several exemplars (R = 3) and scan mode on the main 8 frames."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from devc_tpu_torch.pipeline import graph, video
+
+    clip = os.path.join(tmp, "main")
+    _save_clip(clip, frames)
+    ref_paths = []
+    for i, r in enumerate([ref] + [jobs[j]["ref"] for j in (0, 1)]):
+        ref_paths.append(os.path.join(tmp, f"mref{i}.png"))
+        Image.fromarray(r).save(ref_paths[-1])
+    refs = [ref] + [jobs[j]["ref"] for j in (0, 1)]
+    r_count = len(refs)
+
+    _counts_zero()
+    written = video.colorize_video_multi(
+        models, clip, ref_paths, [os.path.join(tmp, f"multi{i}")
+                                  for i in range(r_count)],
+        image_size=(H, W), write_video=False, out_ext="png")
+    torch.cuda.synchronize()
+    multi_launches = _counts()
+    assert [len(w) for w in written] == [len(frames)] * r_count, written
+    frame0 = {i: _diff(np.asarray(Image.open(w[0])),
+                       main_outs[0] if i == 0 else
+                       _alone_frame0(models, frames, refs[i]))
+              for i, w in enumerate(written)}
+
+    # scan mode through the entry point, against the main phase's stream
+    # outputs; the graph's launches are counted per replay
+    runners = []
+
+    class Recorded(graph.CapturedStep):
+        def __init__(self, *args):
+            super().__init__(*args)
+            runners.append(self)
+
+    video.CapturedStep = Recorded
+    try:
+        _counts_zero()
+        scan = video.colorize_video(models, clip, ref_paths[0],
+                                    os.path.join(tmp, "scan"),
+                                    image_size=(H, W), write_video=False,
+                                    mode="scan", chunk=4, out_ext="png")
+        torch.cuda.synchronize()
+        scan_counted = _counts()
+    finally:
+        video.CapturedStep = graph.CapturedStep
+    scan_equal = [bool(np.array_equal(np.asarray(Image.open(p)), o))
+                  for p, o in zip(scan, main_outs)]
+    (runner,) = runners
+
+    # per-frame ms of the device loop (host launch cost included, no
+    # transfers): eager steps against graph replays, one frame and R = 3
+    dev = models.device
+    frames_dev = torch.from_numpy(np.stack(frames)).to(dev)
+    ms = {}
+    for name, r_refs in (("one_exemplar", refs[:1]), ("three_exemplars",
+                                                      refs)):
+        _, state = video._device_ref_features_multi(
+            models, torch.from_numpy(np.stack(r_refs)).to(dev))
+        carry = torch.zeros((len(r_refs), H // 2, W // 2, 3), device=dev)
+        if len(r_refs) == 1:
+            step = lambda f, c: video.frame_step(models, f, c, state)
+        else:
+            step = lambda f, c: video.frame_step_multi(models, f, c, state)
+
+        def eager():
+            c = carry
+            for f in frames_dev:
+                _, c = step(f, c)
+
+        replay = graph.CapturedStep(step, (H, W, 3), carry)
+        ms[name] = {
+            "stream_ms_per_frame": cuda_ms(eager, reps=3, warmup=1)
+            / len(frames),
+            "scan_ms_per_frame": cuda_ms(lambda: replay.run(frames_dev),
+                                         reps=3, warmup=1) / len(frames)}
+        del replay
+    case = {"check": "multi_and_scan", "frames": len(frames),
+            "exemplars": r_count, "multi_launches": multi_launches,
+            "multi_frame0_vs_serial": frame0,
+            "scan_chunk": 4, "scan_vs_stream": "bit-equal"
+            if all(scan_equal) else scan_equal,
+            "scan_wrapper_counts": scan_counted,
+            "scan_launches_per_replay": runner.kernel_launches,
+            "scan_replays": runner.replays,
+            "scan_kernel_launches": {k: v * runner.replays for k, v in
+                                     runner.kernel_launches.items()},
+            "note": "graph replays run no Python: the wrappers count the "
+                    "warm-up step and the capture; the kernels launched by "
+                    "the replays are replays x launches per replay",
+            "ms": ms, "card": card}
+    emit("serve", **case)
+    assert multi_launches == {"corr_fwd": len(frames),
+                              "smooth_pass": 6 * len(frames),
+                              "tridiag_pcr": 0}, multi_launches
+    assert all(d["max"] <= 1 for d in frame0.values()), frame0
+    assert all(scan_equal) and len(scan) == len(frames), scan_equal
+    assert runner.replays == len(frames)
+    assert runner.kernel_launches == {"corr_fwd": 1, "smooth_pass": 6,
+                                      "tridiag_pcr": 0}
+    return clip, ref_paths[0]
+
+
+def _serve_server(clip, ref_path, tmp, seed):
+    """python -m devc_tpu_torch.cli.serve on the card, as a subprocess:
+    ready line, ping, one job, one batch, shutdown, exit 0."""
+    import threading
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "devc_tpu_torch.cli.serve", "--random_init",
+         "--seed", str(seed), "--image_size", str(H), str(W)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    watchdog = threading.Timer(600, proc.kill)
+    watchdog.start()
+    lines = []
+
+    def ask(req):
+        if req is not None:
+            proc.stdin.write(json.dumps(req) + "\n")
+            proc.stdin.flush()
+        line = proc.stdout.readline()
+        if not line:
+            raise RuntimeError(f"the server exited: {proc.stderr.read()}")
+        lines.append(json.loads(line))
+        return lines[-1]
+
+    t0 = time.perf_counter()
+    try:
+        ready = ask(None)
+        assert ready.get("ready") is True, ready
+        assert ask({"cmd": "ping"}) == {"ok": True, "pong": True}
+        job = ask({"clip_path": clip, "ref_path": ref_path,
+                   "output_path": os.path.join(tmp, "srv_job"),
+                   "mode": "scan", "chunk": 4})
+        assert job["ok"] is True and job["frames"] == N_FRAMES, job
+        batch = ask({"cmd": "batch", "slots": 2, "jobs": [
+            {"clip_path": clip, "ref_path": ref_path,
+             "output_path": os.path.join(tmp, f"srv_b{i}")}
+            for i in range(2)]})
+        assert batch["ok"] is True, batch
+        assert [r["frames"] for r in batch["results"]] == [N_FRAMES] * 2
+        assert ask({"cmd": "shutdown"}) == {"ok": True, "bye": True}
+        code = proc.wait(timeout=120)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert code == 0, code
+    emit("serve", check="server", ran="python -m devc_tpu_torch.cli.serve",
+         exit_code=code, wall_s=time.perf_counter() - t0,
+         responses=[{k: v for k, v in r.items() if k != "results"}
+                    for r in lines])
+
+
+def _serve_video(models, frames, ref, tmp):
+    """A video file as the clip, when cv2 imports."""
+    try:
+        import cv2
+    except ImportError:
+        emit("serve", check="video_file", ran="skipped: no cv2")
+        return
+    import numpy as np
+    from PIL import Image
+
+    from devc_tpu_torch.pipeline import video
+
+    path = os.path.join(tmp, "clip.avi")
+    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 24, (W, H))
+    if not wr.isOpened():
+        raise RuntimeError("cv2 cannot write an MJPG .avi here")
+    for f in frames:
+        wr.write(np.ascontiguousarray(f[..., ::-1]))
+    wr.release()
+    ref_path = os.path.join(tmp, "vref.png")
+    Image.fromarray(ref).save(ref_path)
+    written = video.colorize_video(models, path, ref_path,
+                                   os.path.join(tmp, "vid"), image_size=(H, W),
+                                   write_video=False, out_ext="png")
+    decoded = list(video._video_frames_rgb(path))
+    want = []
+    video.colorize_frames(models, decoded, ref, lambda i, a: want.append(a))
+    same = [bool(np.array_equal(np.asarray(Image.open(p)), w))
+            for p, w in zip(written, want)]
+    emit("serve", check="video_file", ran="colorize_video on an MJPG .avi",
+         frames=len(written), equal_to_colorize_frames_on_decoded=all(same),
+         psnr_frame0_vs_source_frames=float(10 * np.log10(255.0 ** 2 / max(
+             np.mean((decoded[0].astype(float) - frames[0]) ** 2), 1e-12))))
+    assert len(written) == len(frames) and all(same), same
+
+
+def phase_serve(models, frames, ref, main_outs, seed: int, card: str):
+    """The serving path on the card: K2's batched pass and K1 at the
+    serving batches against their plain versions; ClipBatchScheduler (4
+    slots, 6 jobs, one failing) and its device_resize run; several
+    exemplars and scan mode; the server as a subprocess; a video file.
+    Returns (K2 rows, K1 rows, the scheduler run's launch counts)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed + 31)
+    k2, k1 = _serve_kernels(rng, models.device)
+    tmp = tempfile.mkdtemp(prefix="devc_chip_serve_")
+    try:
+        jobs, launches = _serve_scheduler(models, tmp, seed, card)
+        clip, ref_path = _serve_multi_and_scan(models, tmp, jobs, frames, ref,
+                                               main_outs, card)
+        _serve_server(clip, ref_path, tmp, seed)
+        _serve_video(models, frames, ref, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return k2, k1, launches
 
 
 def synthetic_batch_u8(seed: int, b: int, hw):
@@ -1133,14 +1641,32 @@ def main(argv=None) -> int:
     launches, outs, ref, frames = phase_main(models, args.seed, card)
     phase_layers(models, ref, frames[0], card)
     phase_cli(frames, ref, args.seed, outs)
+    k2_serve, k1_serve, serve = phase_serve(models, frames, ref, outs,
+                                            args.seed, card)
     del models
     torch.cuda.empty_cache()
     phase_train_parity(args.seed)
     train = phase_train(args.seed, card)
 
+    # the serving path's shapes beside each kernel's own
+    pick = ("b", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    k1["by_shape"] += [dict({k: c[k] for k in pick}, n=c["n"],
+                            temperature=1e-10, theta=c["theta"],
+                            library_ms=c["library_ms"], path="serve")
+                       for c in k1_serve]
+    k1["max_abs_err"] = max([k1["max_abs_err"]]
+                            + [c["max_abs_err"] for c in k1_serve])
+    smooth = k2["entries"][0]
+    smooth["by_shape"] += [dict({k: c[k] for k in pick}, h=c["h"], w=c["w"],
+                                axis=c["axis"], guide=c["guide"],
+                                path="serve") for c in k2_serve]
+    smooth["max_abs_err"] = k2["max_abs_err"] = max(
+        [smooth["max_abs_err"]] + [c["max_abs_err"] for c in k2_serve])
     # launches: each driven path's count, read right after that path ran
-    # with the counts at 0 (inference main path, training main path)
+    # with the counts at 0 (inference main path, the batched serving
+    # scheduler, training main path)
     by_path = lambda name: {"main": launches.get(name, 0),
+                            "serve": serve.get(name, 0),
                             "train": train.get(name, 0)}
     for entry in k2["entries"]:  # K2's two entries, each with its counts
         entry["launches_by_path"] = by_path(entry["name"])

@@ -1,4 +1,5 @@
-"""Colourise a folder of frames with an exemplar image, in PyTorch.
+"""Colourise a clip (a folder of frames or a video file) with one or more
+exemplar images, in PyTorch.
 
   python -m devc_tpu_torch.cli.colorize --clip_path clips/v32 \\
       --ref_path ref/v32/01.jpg --output_path out/ \\
@@ -8,41 +9,73 @@
 
 --random_init runs the whole pipeline with seeded random weights (the
 same weights as `python -m cli.colorize --random_init --seed s`). A
-directory --ref_path colourises the clip once per exemplar, one after the
-other. Any failure exits non-zero.
+directory --ref_path colourises the clip against all its exemplars in one
+batched pass (`colorize_video_multi`; a corrupt exemplar is dropped with a
+warning), or one after the other with --serial_refs. --mode scan replays a
+captured CUDA graph per frame; --device_resize moves the CenterPad onto
+the device. Any other failure exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 
 def build_models(args):
+    """PipelineModels on args.device: seeded random weights
+    (--random_init), a training checkpoint's generator (--train_ckpt, where
+    the CLI has it) with the VGG of --vgg_ckpt or, when that file is
+    missing, the seeded draw, or the reference's three .pth files."""
+    import torch
+
     from devc_tpu_torch.pipeline.frame import PipelineModels
+    from devc_tpu_torch.utils.convert import state_dicts_from_numpy
+    from devc_tpu_torch.utils.init import host_pipeline_params
 
-    if args.random_init:
-        from devc_tpu_torch.utils.convert import state_dicts_from_numpy
-        from devc_tpu_torch.utils.init import host_pipeline_params
+    def load(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
 
+    if getattr(args, "train_ckpt", None):
+        from devc_tpu_torch.train.checkpoint import load_train_params_g
+
+        sds = load_train_params_g(args.train_ckpt, args.train_ckpt_step)
+        if os.path.exists(args.vgg_ckpt):
+            sds["vgg"] = load(args.vgg_ckpt)
+        else:
+            print(f"WARNING: {args.vgg_ckpt} missing; using the seed-"
+                  f"{args.seed} random VGG", file=sys.stderr)
+            sds["vgg"] = state_dicts_from_numpy(
+                host_pipeline_params(args.seed))["vgg"]
+    elif args.random_init:
         sds = state_dicts_from_numpy(host_pipeline_params(args.seed))
     else:
-        import torch
-
-        sds = {
-            name: torch.load(path, map_location="cpu", weights_only=True)
-            for name, path in (("vgg", args.vgg_ckpt),
-                               ("warpnet", args.warpnet_ckpt),
-                               ("colorvid", args.colornet_ckpt))
-        }
+        sds = {name: load(path) for name, path in (
+            ("vgg", args.vgg_ckpt), ("warpnet", args.warpnet_ckpt),
+            ("colorvid", args.colornet_ckpt))}
     return PipelineModels.from_state_dicts(sds, args.device)
+
+
+def add_model_args(p) -> None:
+    """The weight and device options cli.colorize and cli.serve share."""
+    p.add_argument("--temperature", type=float, default=1e-10)
+    p.add_argument("--vgg_ckpt", type=str, default="data/vgg19_conv.pth")
+    p.add_argument("--warpnet_ckpt", type=str,
+                   default="checkpoints/video_moredata_l1/nonlocal_net_iter_76000.pth")
+    p.add_argument("--colornet_ckpt", type=str,
+                   default="checkpoints/video_moredata_l1/colornet_iter_76000.pth")
+    p.add_argument("--random_init", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; 'cuda' fails when no GPU is present")
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--clip_path", type=str, required=True,
-                   help="directory of frames")
+                   help="directory of frames, or a video file")
     p.add_argument("--ref_path", type=str, required=True,
                    help="directory of reference images, or a single image")
     p.add_argument("--output_path", type=str, required=True)
@@ -52,17 +85,24 @@ def main(argv=None):
                    help="use the first frame as the reference")
     p.add_argument("--no_wls", action="store_true",
                    help="disable edge-aware post smoothing")
-    p.add_argument("--temperature", type=float, default=1e-10)
-    p.add_argument("--vgg_ckpt", type=str, default="data/vgg19_conv.pth")
-    p.add_argument("--warpnet_ckpt", type=str,
-                   default="checkpoints/video_moredata_l1/nonlocal_net_iter_76000.pth")
-    p.add_argument("--colornet_ckpt", type=str,
-                   default="checkpoints/video_moredata_l1/colornet_iter_76000.pth")
-    p.add_argument("--random_init", action="store_true")
-    p.add_argument("--seed", type=int, default=0)
+    add_model_args(p)
     p.add_argument("--no_video", action="store_true")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device; 'cuda' fails when no GPU is present")
+    p.add_argument("--serial_refs", action="store_true",
+                   help="colourise with the reference images one at a time "
+                        "(the reference's behaviour) instead of as one "
+                        "batch on the device")
+    p.add_argument("--mode", type=str, default="stream",
+                   choices=["stream", "scan"],
+                   help="stream: one device step per frame; scan: chunks "
+                        "of frames, each frame a replay of one captured "
+                        "CUDA graph on the card")
+    p.add_argument("--chunk", type=int, default=64,
+                   help="frames per host hand-off (mode scan)")
+    p.add_argument("--device_resize", action="store_true",
+                   help="run the CenterPad resize on the device as two "
+                        "matrix products (the host only decodes; one "
+                        "resolution per clip; <= 1 uint8 step off the host "
+                        "path)")
     args = p.parse_args(argv)
 
     h, w = args.image_size
@@ -71,32 +111,58 @@ def main(argv=None):
             f"--image_size {h} {w}: H must be a multiple of 16 and W a "
             "multiple of 32 (the reference default is 432 768)"
         )
-    if not os.path.isdir(args.clip_path):
-        p.error(f"--clip_path {args.clip_path}: not a directory")
+    from devc_tpu_torch.data.transforms import VIDEO_EXTS, is_video_file
+
+    clip_is_video = is_video_file(args.clip_path)
+    if not (os.path.isdir(args.clip_path) or clip_is_video):
+        p.error(f"--clip_path {args.clip_path}: not a directory or a video "
+                f"file ({'/'.join(VIDEO_EXTS)})")
     if not os.path.exists(args.ref_path):
         p.error(f"--ref_path {args.ref_path}: does not exist")
+    if args.chunk < 1:
+        p.error(f"--chunk {args.chunk}: must be >= 1")
 
-    from devc_tpu_torch.pipeline.video import colorize_video
+    from devc_tpu_torch.pipeline.video import (
+        colorize_video,
+        colorize_video_multi,
+    )
 
     models = build_models(args)
     clip_name = os.path.basename(os.path.normpath(args.clip_path))
+    if clip_is_video:  # the container's extension is not part of the name
+        clip_name = os.path.splitext(clip_name)[0]
     if os.path.isdir(args.ref_path):
         refs = [os.path.join(args.ref_path, r)
                 for r in sorted(os.listdir(args.ref_path))]
     else:
         refs = [args.ref_path]
+    out_dirs = [os.path.join(
+        args.output_path,
+        f"{clip_name}_{os.path.splitext(os.path.basename(r))[0]}")
+        for r in refs]
+    common = dict(image_size=(h, w), temperature=args.temperature,
+                  wls=not args.no_wls, write_video=not args.no_video,
+                  mode=args.mode, chunk=args.chunk,
+                  device_resize=args.device_resize)
 
-    for ref in refs:
-        ref_id = os.path.splitext(os.path.basename(ref))[0]
-        out_dir = os.path.join(args.output_path, f"{clip_name}_{ref_id}")
+    if len(refs) > 1 and not args.serial_refs and not args.frame_propagate:
+        print(f"colorizing {args.clip_path} against {len(refs)} exemplars "
+              f"(batched) -> {args.output_path}")
+        t0 = time.perf_counter()
+        written = colorize_video_multi(models, args.clip_path, refs,
+                                       out_dirs, **common)
+        dt = time.perf_counter() - t0
+        n = sum(len(w) for w in written)
+        print(f"  {n} frames in {dt:.1f}s ({n / dt:.2f} fps incl. set-up) "
+              f"on {args.device}")
+        return
+
+    for ref, out_dir in zip(refs, out_dirs):
         print(f"colorizing {args.clip_path} with exemplar {ref} -> {out_dir}")
         t0 = time.perf_counter()
         written = colorize_video(
             models, args.clip_path, ref, out_dir,
-            image_size=(h, w), temperature=args.temperature,
-            wls=not args.no_wls, frame_propagate=args.frame_propagate,
-            write_video=not args.no_video,
-        )
+            frame_propagate=args.frame_propagate, **common)
         dt = time.perf_counter() - t0
         print(f"  {len(written)} frames in {dt:.1f}s "
               f"({len(written) / dt:.2f} fps incl. set-up) on {args.device}")

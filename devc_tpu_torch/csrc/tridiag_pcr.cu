@@ -5,11 +5,15 @@
 // Two entries over one solver core:
 //
 //   devc_smooth_pass  one whole pass of fast_global_smoother in one launch:
-//                     reads src [H, W, 2] and the guide [H, W] in place
+//                     reads src [B, H, W, 2] and the guides [B, H, W] (or
+//                     one guide [H, W] shared by all B images) in place
 //                     (rows or columns, no transposed copy), builds the
 //                     coefficients from the guide, solves both ab channels
 //                     as two right-hand sides of one system and writes
-//                     [H, W, 2]. The frame's six passes are six launches.
+//                     [B, H, W, 2]. The grid's second axis is the image,
+//                     so a pass over B images (B clip slots, or R
+//                     exemplars against one frame's guide) is one launch,
+//                     and a step's six passes are six launches for any B.
 //   devc_tridiag_pcr  the general batched solve: coefficients given,
 //                     [B, L] row-major systems.
 //
@@ -172,14 +176,21 @@ __device__ __forceinline__ void solve(Rows<NRHS>& e, float* smem, int t,
 }
 
 // One pass of the smoother. System `sys` of n_sys, unknown p of len:
-// pixel sys * sys_stride + p * pos_stride of src [H, W, 2] / guide [H, W]
-// (a row pass: sys_stride W, pos_stride 1; a column pass: 1 and W).
+// pixel sys * sys_stride + p * pos_stride of image blockIdx.y of src
+// [B, H, W, 2] / guide (a row pass: sys_stride W, pos_stride 1; a column
+// pass: 1 and W). Image i's guide starts i * guide_bstride floats in
+// (H W for per-image guides, 0 for one shared guide).
 __global__ void __launch_bounds__(MAX_THREADS)
 smooth_pass_kernel(const float2* __restrict__ src,
                    const float* __restrict__ guide, float2* __restrict__ out,
                    int n_sys, int len, int sys_stride, int pos_stride,
-                   float lam, float sigma, int r_len) {
+                   long long guide_bstride, float lam, float sigma,
+                   int r_len) {
   extern __shared__ float smem[];
+  const size_t image = (size_t)n_sys * len;
+  src += blockIdx.y * image;
+  out += blockIdx.y * image;
+  guide += blockIdx.y * guide_bstride;
   const int n_s = blockDim.x, n_t = blockDim.y;
   const int sys = threadIdx.x, t = threadIdx.y;
   const int g = blockIdx.x * n_s + sys;
@@ -286,25 +297,28 @@ cudaError_t prepare(Kernel kernel, const Plan& p) {
 
 }  // namespace
 
-// src, out [h, w, 2] and guide [h, w], fp32, contiguous, 8-byte aligned.
-// axis 1: the systems run along w (one per row); axis 0: along h (one per
-// column). lam, sigma: the pass's lambda_t and sigma_color. Returns
+// src, out [batch, h, w, 2] and guide [batch, h, w] (guide_bstride h w)
+// or [h, w] (guide_bstride 0), fp32, contiguous, 8-byte aligned. axis 1:
+// the systems run along w (one per row); axis 0: along h (one per column).
+// lam, sigma: the pass's lambda_t and sigma_color. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue, with no
-// launch, for a system too long for one block).
+// launch, for a system too long for one block or more than 65535 images).
 extern "C" int devc_smooth_pass(const void* src, const void* guide, void* out,
-                                int h, int w, int axis, float lam, float sigma,
-                                void* stream) {
+                                int batch, int h, int w, int axis,
+                                long long guide_bstride, float lam,
+                                float sigma, void* stream) {
   const int n_sys = axis == 1 ? h : w;
   const int len = axis == 1 ? w : h;
+  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   const Plan p = plan(len, 5);
   cudaError_t err = prepare(smooth_pass_kernel, p);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(p.n_s, p.n_t);
-  const int grid = (n_sys + p.n_s - 1) / p.n_s;
+  const dim3 grid((n_sys + p.n_s - 1) / p.n_s, batch);
   smooth_pass_kernel<<<grid, block, p.smem, (cudaStream_t)stream>>>(
       static_cast<const float2*>(src), static_cast<const float*>(guide),
       static_cast<float2*>(out), n_sys, len, axis == 1 ? w : 1,
-      axis == 1 ? 1 : w, lam, sigma, p.r_len);
+      axis == 1 ? 1 : w, guide_bstride, lam, sigma, p.r_len);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,12 @@ import os
 import numpy as np
 
 FRAME_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
+VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
+
+
+def is_video_file(path: str) -> bool:
+    """A file whose extension names a video container (decoded by cv2)."""
+    return os.path.isfile(path) and path.lower().endswith(VIDEO_EXTS)
 
 
 def list_clip_frames(clip_dir: str) -> list[str]:
@@ -77,10 +83,20 @@ def center_pad_crop(arr: np.ndarray, size) -> np.ndarray:
     return np.ascontiguousarray(arr[top:top + th, left:left + tw])
 
 
-def load_frame_rgb(path: str, size) -> np.ndarray:
-    """Decode an image file -> uint8 RGB [th, tw, 3], center-padded."""
+def centerpad_np(arr_u8: np.ndarray, size) -> np.ndarray:
+    """CenterPad + CenterCrop of a decoded uint8 RGB array (a video
+    frame): the same transform `load_frame_rgb` applies to a file."""
+    return center_pad_crop(np.asarray(arr_u8, dtype=np.uint8), size)
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """Decode an image file -> uint8 RGB [H, W, 3], as stored."""
     from PIL import Image
 
     with Image.open(path) as img:
-        arr = np.asarray(img.convert("RGB"), dtype=np.uint8)
-    return center_pad_crop(arr, size)
+        return np.asarray(img.convert("RGB"), dtype=np.uint8)
+
+
+def load_frame_rgb(path: str, size) -> np.ndarray:
+    """Decode an image file -> uint8 RGB [th, tw, 3], center-padded."""
+    return center_pad_crop(read_rgb(path), size)

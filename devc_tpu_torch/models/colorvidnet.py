@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from devc_tpu_torch.ops.layers import instance_norm, leaky_relu
+from devc_tpu_torch.ops.layers import Conv2d, instance_norm, leaky_relu
 
 # name -> (in, out, ksize, groups, bias, dilation)
 _CONVS = {
@@ -62,7 +62,7 @@ def _make_conv(name, in_ch=None):
     ci, co, ks, g, bias, d = _CONVS[name]
     pad = d if ks == 3 else 0
     stride = 2 if name.endswith("norm_ss") else 1
-    return nn.Conv2d(in_ch or ci, co, ks, stride=stride, padding=pad,
+    return Conv2d(in_ch or ci, co, ks, stride=stride, padding=pad,
                      dilation=d, groups=g, bias=bias)
 
 

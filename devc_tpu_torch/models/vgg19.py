@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from devc_tpu_torch import colorspace as cs
+from devc_tpu_torch.ops.layers import Conv2d
 from devc_tpu_torch.ops.resize import max_pool
 
 # (name, in_ch, out_ch); pools sit between blocks
@@ -39,7 +40,7 @@ class VGG19(nn.Module):
     def __init__(self):
         super().__init__()
         for name, ci, co in _CFG:
-            self.add_module(name, nn.Conv2d(ci, co, 3, padding=1))
+            self.add_module(name, Conv2d(ci, co, 3, padding=1))
 
     def forward(self, x, out_keys):
         """x: [N, 3, H, W] preprocessed BGR*255 -> taps in out_keys order."""

@@ -21,6 +21,7 @@ from torch import nn
 
 from devc_tpu_torch.ops.correspondence import correspondence_warp
 from devc_tpu_torch.ops.layers import (
+    Conv2d,
     InstanceNorm,
     ReflectPad,
     instance_norm,
@@ -36,7 +37,7 @@ INTER_CH = 256
 
 def _conv_block(ci, co, stride=1):
     # indices 0..3 of the reference's pyramid Sequential
-    return [ReflectPad(1), nn.Conv2d(ci, co, 3, stride=stride),
+    return [ReflectPad(1), Conv2d(ci, co, 3, stride=stride),
             InstanceNorm(), nn.PReLU()]
 
 
@@ -60,8 +61,8 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, ch: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(ch, ch, 3)
-        self.conv2 = nn.Conv2d(ch, ch, 3)
+        self.conv1 = Conv2d(ch, ch, 3)
+        self.conv2 = Conv2d(ch, ch, 3)
         self.prelu = nn.PReLU()
 
     def forward(self, x):
@@ -80,8 +81,8 @@ class WarpNet(nn.Module):
         self.layer4_1 = _pyramid("4_1", 512, 256)
         self.layer5_1 = _pyramid("5_1", 512, 256)
         self.layer = nn.Sequential(*(ResidualBlock(ch) for _ in range(3)))
-        self.theta = nn.Conv2d(ch, INTER_CH, 1)
-        self.phi = nn.Conv2d(ch, INTER_CH, 1)
+        self.theta = Conv2d(ch, INTER_CH, 1)
+        self.phi = Conv2d(ch, INTER_CH, 1)
 
     def embed(self, feats):
         """Pyramids + residual blocks for one image's NCHW features

@@ -9,10 +9,12 @@ w = exp(-|g_i - g_j| / sigma_color) on the guide (luminance in [0, 255]).
 
 Kernel K2 (`csrc/tridiag_pcr.cu`, replacing
 devc_tpu/ops/fgs.py::_tridiag_pcr_pallas) has two entries:
-  * `smooth_pass`: one whole pass on [H, W, 2] in one launch (coefficients
-    from the guide, both channels, rows or columns in place). CUDA tensors
-    launch it; CPU tensors take its plain version, `_smooth_axis` with the
-    plain PCR. `fast_global_smoother` is six of these.
+  * `smooth_pass`: one whole pass on [H, W, 2], or on a batch [B, H, W, 2]
+    with a guide per image or one shared guide, in one launch
+    (coefficients from the guide, both channels, rows or columns in
+    place). CUDA tensors launch it; CPU tensors take its plain version,
+    `_smooth_axis` with the plain PCR. `fast_global_smoother` is six of
+    these, whatever B is.
   * `tridiag_pcr`: the general solve of [B, L] systems, coefficients
     given (plain versions `_tridiag_pcr`, `_tridiag_thomas`).
 """
@@ -114,44 +116,73 @@ def tridiag_pcr(a, b, c, d):
 tridiag_pcr.launches = 0
 
 
+def _weights(guide, sigma_color: float):
+    """exp(-|g_{j+1} - g_j| / sigma_color) along the last axis of guide
+    [Bg, H, W] -> [Bg, H, W - 1], image by image: the CPU's vector exp and
+    its scalar tail differ in the last bit, so a batched call takes each
+    image's weights bit for bit from the same call on it alone."""
+    return torch.stack([
+        torch.exp(-torch.abs(g[:, 1:] - g[:, :-1]) / sigma_color)
+        for g in guide])
+
+
 def _smooth_axis(src, guide, lam_t: float, sigma_color: float):
-    """Plain version of one horizontal WLS pass. src [H, W, C], guide
-    [H, W] -> [H, W, C]. The systems run along W, one per (row, channel),
-    built into [H*C, W] and solved by the plain PCR."""
-    h, w, ch = src.shape
-    wgt = torch.exp(-torch.abs(guide[:, 1:] - guide[:, :-1]) / sigma_color)
-    zeros_col = torch.zeros((h, 1), dtype=src.dtype, device=src.device)
-    w_left = torch.cat([zeros_col, wgt], dim=1)  # weight to col - 1
-    w_right = torch.cat([wgt, zeros_col], dim=1)  # weight to col + 1
+    """Plain version of one horizontal WLS pass. src [B, H, W, C], guide
+    [Bg, H, W] with Bg = B (one per image) or 1 (shared) -> [B, H, W, C].
+    The systems run along W, one per (image, row, channel), built into
+    [B*H*C, W] and solved by the plain PCR."""
+    b, h, w, ch = src.shape
+    wgt = _weights(guide, sigma_color).expand(b, h, w - 1)
+    zeros_col = torch.zeros((b, h, 1), dtype=src.dtype, device=src.device)
+    w_left = torch.cat([zeros_col, wgt], dim=2)  # weight to col - 1
+    w_right = torch.cat([wgt, zeros_col], dim=2)  # weight to col + 1
     diag = 1.0 + lam_t * (w_left + w_right)
 
-    def per_channel(x):  # [H, W] -> [H*C, W]
-        return x[:, None, :].expand(h, ch, w).reshape(h * ch, w)
+    def per_channel(x):  # [B, H, W] -> [B*H*C, W]
+        return x[:, :, None, :].expand(b, h, ch, w).reshape(b * h * ch, w)
 
     x = _tridiag_pcr(per_channel(-lam_t * w_left), per_channel(diag),
                      per_channel(-lam_t * w_right),
-                     src.permute(0, 2, 1).reshape(h * ch, w).contiguous())
-    return x.reshape(h, ch, w).permute(0, 2, 1)
+                     src.permute(0, 1, 3, 2).reshape(b * h * ch, w))
+    return x.reshape(b, h, ch, w).permute(0, 1, 3, 2)
+
+
+def _batch_form(src, guide, fn: str):
+    """(src [B, H, W, C], guide [Bg, H, W], batched) from src [H, W, C]
+    or [B, H, W, C] and guide [H, W] (shared) or [B, H, W]."""
+    batched = src.dim() == 4
+    if src.dim() not in (3, 4) or guide.dim() not in (2, 3) or (
+            guide.dim() == 3 and (not batched or guide.shape[0] != src.shape[0])
+    ) or tuple(guide.shape[-2:]) != tuple(src.shape[-3:-1]):
+        raise ValueError(f"{fn}: expected src [H, W, C] or [B, H, W, C] and "
+                         "guide [H, W] or [B, H, W], got "
+                         f"{tuple(src.shape)} and {tuple(guide.shape)}")
+    return (src if batched else src[None],
+            guide if guide.dim() == 3 else guide[None], batched)
 
 
 def smooth_pass_plain(src, guide, lam_t: float, sigma_color: float,
                       axis: int):
-    """Plain version of `smooth_pass`, on any device: `_smooth_axis`, on
-    the transposed image for axis 0."""
+    """Plain version of `smooth_pass`, on any device, with its shapes:
+    `_smooth_axis`, on the transposed images for axis 0."""
+    src4, guide3, batched = _batch_form(src, guide, "smooth_pass_plain")
     if axis == 1:
-        return _smooth_axis(src, guide, lam_t, sigma_color)
-    return _smooth_axis(src.transpose(0, 1), guide.T, lam_t,
-                        sigma_color).transpose(0, 1)
+        out = _smooth_axis(src4, guide3, lam_t, sigma_color)
+    else:
+        out = _smooth_axis(src4.transpose(1, 2), guide3.transpose(1, 2),
+                           lam_t, sigma_color).transpose(1, 2)
+    return out if batched else out[0]
 
 
 def smooth_pass(src, guide, lam_t: float, sigma_color: float, axis: int):
-    """One WLS pass of the smoother: src [H, W, 2], guide [H, W] ->
-    [H, W, 2] fp32. axis 1 runs the systems along W (one per row), axis 0
+    """One WLS pass of the smoother: src [H, W, 2] or [B, H, W, 2], guide
+    [H, W] (shared by every image) or [B, H, W] (one per image) -> src's
+    shape, fp32. axis 1 runs the systems along W (one per row), axis 0
     along H (one per column).
 
-    CUDA tensors launch kernel K2 once (fp32, contiguous, one device) or
-    raise; CPU tensors take the plain version. `smooth_pass.launches`
-    counts the launches."""
+    CUDA tensors launch kernel K2 once for the whole batch (fp32,
+    contiguous, one device) or raise; CPU tensors take the plain version.
+    `smooth_pass.launches` counts the launches."""
     if axis not in (0, 1):
         raise ValueError(f"smooth_pass: axis must be 0 or 1, got {axis}")
     if src.device.type == "cpu" and guide.device.type == "cpu":
@@ -160,10 +191,10 @@ def smooth_pass(src, guide, lam_t: float, sigma_color: float, axis: int):
         raise ValueError("smooth_pass: src and guide must be on one CUDA "
                          f"device or both on the CPU, got {src.device} and "
                          f"{guide.device}")
-    if src.dim() != 3 or src.shape[2] != 2 or guide.shape != src.shape[:2]:
-        raise ValueError(f"smooth_pass: expected src [H, W, 2] and guide "
-                         f"[H, W], got {tuple(src.shape)} and "
-                         f"{tuple(guide.shape)}")
+    src4, guide3, _ = _batch_form(src, guide, "smooth_pass")
+    if src4.shape[3] != 2:
+        raise ValueError(f"smooth_pass: src needs 2 channels, got "
+                         f"{tuple(src.shape)}")
     for name, t in (("src", src), ("guide", guide)):
         if t.dtype != torch.float32:
             raise TypeError(f"smooth_pass: {name} must be float32, got "
@@ -171,7 +202,9 @@ def smooth_pass(src, guide, lam_t: float, sigma_color: float, axis: int):
         if not t.is_contiguous() or t.data_ptr() % 8:
             raise ValueError(f"smooth_pass: {name} must be contiguous and "
                              "8-byte aligned")
-    h, w = guide.shape
+    batch, h, w = src4.shape[:3]
+    if batch == 0 or batch > 65535:
+        raise ValueError(f"smooth_pass: 1..65535 images, got {batch}")
     if h == 0 or w == 0 or (h if axis == 0 else w) > MAX_LEN:
         raise ValueError(f"smooth_pass: systems of length 1..{MAX_LEN}, got "
                          f"{h if axis == 0 else w}")
@@ -179,7 +212,8 @@ def smooth_pass(src, guide, lam_t: float, sigma_color: float, axis: int):
     out = torch.empty_like(src)
     with torch.cuda.device(src.device):
         code = lib.devc_smooth_pass(
-            src.data_ptr(), guide.data_ptr(), out.data_ptr(), h, w, axis,
+            src.data_ptr(), guide.data_ptr(), out.data_ptr(), batch, h, w,
+            axis, h * w if guide.dim() == 3 else 0,
             float(lam_t), float(sigma_color),
             torch.cuda.current_stream().cuda_stream)
     check(code, "smooth_pass")
@@ -198,10 +232,11 @@ NUM_ITER = 3
 
 
 def fast_global_smoother(src, guide):
-    """Edge-aware smoothing of src [H, W, C] guided by guide [H, W] (in
-    [0, 255]). Returns [H, W, C] fp32. Each iteration is one row pass and
-    one column pass (`smooth_pass`): on the card six launches of K2 and
-    nothing else, for C = 2."""
+    """Edge-aware smoothing of src [H, W, C] or [B, H, W, C] guided by
+    guide [H, W] (shared) or [B, H, W] (one per image), in [0, 255].
+    Returns src's shape, fp32. Each iteration is one row pass and one
+    column pass (`smooth_pass`): on the card six launches of K2 and
+    nothing else, for C = 2 and any B."""
     out = src.float().contiguous()
     guide = guide.float().contiguous()
     denom = 4.0 ** NUM_ITER - 1.0

@@ -3,9 +3,10 @@ devc_tpu/ops/layers.py).
 
 Semantics are those of the reference's PyTorch layers: InstanceNorm2d
 (affine=False, biased variance, eps 1e-5), PReLU with one shared slope,
-LeakyReLU, ReflectionPad2d and replicate padding. Convolutions are plain
-`nn.Conv2d` in the modules. `unfold_patches` (the losses' F.unfold) takes
-devc_tpu's NHWC layout, as its callers do.
+LeakyReLU, ReflectionPad2d and replicate padding. Convolutions are
+`Conv2d`, an `nn.Conv2d` (same parameters and keys) that runs a batch
+one sample at a time on the card under inference mode. `unfold_patches`
+(the losses' F.unfold) takes devc_tpu's NHWC layout, as its callers do.
 """
 
 from __future__ import annotations
@@ -13,6 +14,28 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that, on the card under inference mode, convolves a batch
+    one sample at a time.
+
+    With TF32 off, cuDNN 9's heuristics pick FFT algorithms for these fp32
+    layers at batch > 1: a serving step of 4 frames at 432x768 took
+    487-586 ms and 17.9 GB, one sample at a time 78 ms and 1.4 GB (batch
+    1: 21 ms; NVIDIA H100 80GB HBM3, 700 W; `chip_conv_probe.py`). A
+    sample then gets batch 1's algorithm and bits. Training (autograd, no
+    inference mode) and the CPU convolve the batch whole. `Conv2d.per_sample = False` turns it off (the probe
+    measures the whole batch that way)."""
+
+    per_sample = True
+
+    def forward(self, x):
+        if (self.per_sample and x.shape[0] > 1 and x.is_cuda
+                and torch.is_inference_mode_enabled()):
+            return torch.cat([super(Conv2d, self).forward(s)
+                              for s in x.split(1)])
+        return super().forward(x)
 
 
 def instance_norm(x, eps: float = 1e-5):

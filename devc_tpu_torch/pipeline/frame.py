@@ -78,6 +78,20 @@ def prepare_reference(models: PipelineModels, ref_lab):
     return {"phi": phi, "values": values}
 
 
+def _frame_features(models, a_l):
+    """VGG taps r22..r52 of the gray frame a_l [B, H, W, 1], normalised;
+    no gradient (a frozen extractor, as devc_tpu's stop_gradient)."""
+    with torch.no_grad():
+        feats_a = vgg19_extract(models.vgg, cs.gray_to_rgb(a_l), FEATURE_TAPS)
+    return [cs.feature_normalize(f) for f in feats_a[1:]]
+
+
+def query_embedding(models, a_l):
+    """The frame side of the correspondence: theta [B, N, 256] of the gray
+    frame a_l [B, H, W, 1]."""
+    return embed_queries(models.warpnet, _frame_features(models, a_l))
+
+
 def warp_color(models, a_l, ref_state, temperature: float = 0.01,
                differentiable: bool = False):
     """Warp the exemplar's colour onto the gray frame.
@@ -88,16 +102,14 @@ def warp_color(models, a_l, ref_state, temperature: float = 0.01,
     differentiated (training).
     Returns (warped_lab [B, H, W, 3], similarity [B, H, W, 1]).
     """
-    with torch.no_grad():
-        feats_a = vgg19_extract(models.vgg, cs.gray_to_rgb(a_l), FEATURE_TAPS)
-    a_n = [cs.feature_normalize(f) for f in feats_a[1:]]
     hw = (a_l.shape[1], a_l.shape[2])
     if "phi" in ref_state:
-        theta = embed_queries(models.warpnet, a_n)
+        theta = query_embedding(models, a_l)
         return warp_with_keys(theta, ref_state["phi"], ref_state["values"],
                               hw, temperature, differentiable)
     b_n = [cs.feature_normalize(f.detach()) for f in ref_state["features"][1:]]
-    return warpnet_apply(models.warpnet, ref_state["lab"], a_n, b_n,
+    return warpnet_apply(models.warpnet, ref_state["lab"],
+                         _frame_features(models, a_l), b_n,
                          temperature, differentiable)
 
 

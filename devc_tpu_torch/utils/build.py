@@ -37,9 +37,9 @@ _SIGNATURES = {
     "devc_corr_fwd": ([_P] * 7 + [_I] * 5 + [ctypes.c_float, _P], _I),
     # a, b, c, d, x, n_sys, len, stream
     "devc_tridiag_pcr": ([_P] * 5 + [_I, _I, _P], _I),
-    # src, guide, out, h, w, axis, lam, sigma, stream
-    "devc_smooth_pass": ([_P] * 3 + [_I] * 3 + [ctypes.c_float] * 2 + [_P],
-                         _I),
+    # src, guide, out, batch, h, w, axis, guide_bstride, lam, sigma, stream
+    "devc_smooth_pass": ([_P] * 3 + [_I] * 4 + [ctypes.c_longlong]
+                         + [ctypes.c_float] * 2 + [_P], _I),
     # df, phi, dtheta, part, batch, nq, nk, c, splits, stream
     "devc_corr_bwd_dq": ([_P] * 4 + [_I] * 5 + [_P], _I),
     # theta, phi, values, m, l, dd, dsim, dout, rows, df, dphi, dvalues,

@@ -1,6 +1,9 @@
-"""CUDA kernels K1 (fused correspondence), K2 (the smoother pass and the
-general tridiagonal solve) and the correspondence backward kernels K2b/K3
-vs their plain PyTorch versions on the card. Needs no JAX.
+"""CUDA kernels K1 (fused correspondence), K2 (the smoother pass, one
+image or a batch, and the general tridiagonal solve) and the
+correspondence backward kernels K2b/K3 vs their plain PyTorch versions on
+the card, and the serving path's device steps (captured scan-mode replays
+against stream mode, the batched step against the CPU, the device
+CenterPad against the host). Needs no JAX.
 
 Every test here needs an NVIDIA GPU and nvcc (a CUDA kernel has no CPU
 mode) and is skipped without one. Run them on the card with
@@ -393,3 +396,144 @@ def test_kernel_paths_refuse_inputs_that_need_grad(cuda):
     with torch.no_grad():
         out, _, _ = cuda_corr.corr_fwd(theta, phi, values, 0.01)
     assert out.grad_fn is None
+
+
+# --- the serving path: K2 over a batch, captured steps, batched steps ---
+
+
+@pytest.mark.parametrize("hw", [(432, 768), (37, 70)])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("b,shared", [(4, False), (3, True)])
+def test_smooth_pass_batched_matches_plain(cuda, hw, axis, b, shared):
+    """One launch for the whole batch, per-image guides or one shared
+    guide: against the batched plain pass at K2's bound, and each image
+    bit-equal to the kernel's own call on that image alone."""
+    pairs = [_frame(hw, cuda, seed=i) for i in range(b)]
+    src = torch.stack([p[0] for p in pairs])
+    guide = pairs[0][1] if shared else torch.stack([p[1] for p in pairs])
+    lam = 1.5 * 500.0 * 16.0 / 63.0
+    before = fgs.smooth_pass.launches
+    x = fgs.smooth_pass(src, guide, lam, 4.0, axis)
+    torch.cuda.synchronize()
+    assert fgs.smooth_pass.launches == before + 1
+    want = fgs.smooth_pass_plain(src, guide, lam, 4.0, axis)
+    assert x.shape == want.shape == src.shape
+    torch.testing.assert_close(x, want, rtol=1e-4,
+                               atol=1e-5 * want.abs().max().item())
+    for i in range(b):
+        alone = fgs.smooth_pass(src[i], guide if shared else guide[i], lam,
+                                4.0, axis)
+        assert torch.equal(x[i], alone), i
+
+
+def _models(device):
+    from devc_tpu_torch.pipeline.frame import PipelineModels
+    from devc_tpu_torch.utils.convert import state_dicts_from_numpy
+    from devc_tpu_torch.utils.init import host_pipeline_params
+
+    return PipelineModels.from_state_dicts(
+        state_dicts_from_numpy(host_pipeline_params(0)), device)
+
+
+def _textured(seed, n, hw):
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    out = []
+    for _ in range(n):
+        coarse = rng.rand(h // 8 + 1, w // 8 + 1, 3)
+        field = np.kron(coarse, np.ones((8, 8, 1)))[:h, :w]
+        img = field * 200 + 20 + rng.randn(h, w, 3) * 12
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_scan_replays_equal_stream(cuda, multi, monkeypatch):
+    """Scan mode (one captured CUDA graph replayed per frame, chunk 2 over
+    5 frames, so the tail chunk holds one) gives stream mode's frames bit
+    for bit, one exemplar and three; one replay launches K1 once and K2
+    six times."""
+    from devc_tpu_torch.pipeline import graph, video
+
+    models = _models(cuda)
+    *refs, f0, f1, f2, f3, f4 = _textured(3, 8, (64, 128))
+    frames = [f0, f1, f2, f3, f4]
+    runners = []
+
+    def capture(*args):
+        runners.append(graph.CapturedStep(*args))
+        return runners[-1]
+
+    monkeypatch.setattr(video, "CapturedStep", capture)
+    outs = {}
+    for mode in ("stream", "scan"):
+        got = []
+        if multi:
+            video.colorize_frames_multi(models, frames, np.stack(refs),
+                                        lambda i, a: got.append(a),
+                                        mode=mode, chunk=2)
+        else:
+            video.colorize_frames(models, frames, refs[0],
+                                  lambda i, a: got.append(a), mode=mode,
+                                  chunk=2)
+        outs[mode] = got
+    assert len(outs["scan"]) == len(outs["stream"]) == 5
+    for a, b in zip(outs["stream"], outs["scan"]):
+        assert np.array_equal(a, b)
+    (runner,) = runners
+    assert runner.replays == 5
+    assert runner.kernel_launches == {"corr_fwd": 1, "smooth_pass": 6,
+                                      "tridiag_pcr": 0}
+
+
+def test_batched_frame_step_on_card_matches_cpu(cuda):
+    """B = 3 clips in one step on the card (one K1 launch at batch 3, six
+    K2 launches with a guide per clip) against the same step on the CPU,
+    at the bounds of test_frame_step_on_card_matches_cpu."""
+    from devc_tpu_torch.parallel import inference
+
+    frames = np.stack(_textured(4, 3, (64, 128)))
+    refs = np.stack(_textured(5, 3, (64, 128)))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        models = _models(dev)
+        _, state = inference.prepare_references_batched(
+            models, torch.from_numpy(refs).to(dev))
+        last = torch.zeros((3, 32, 64, 3), device=dev)
+        k1, k2 = cuda_corr.corr_fwd.launches, fgs.smooth_pass.launches
+        out, new_last = inference.batched_frame_step(
+            models, torch.from_numpy(frames).to(dev), last, state,
+            temperature=0.01)
+        launched = (cuda_corr.corr_fwd.launches - k1,
+                    fgs.smooth_pass.launches - k2)
+        assert launched == ((1, 6) if dev == "cuda" else (0, 0))
+        outs[dev] = (out.cpu().numpy().astype(int), new_last.cpu().numpy())
+    assert np.abs(outs["cuda"][1] - outs["cpu"][1]).max() < 0.5
+    assert np.abs(outs["cuda"][0] - outs["cpu"][0]).max() <= 2
+
+
+def test_device_centerpad_on_card(cuda):
+    """The CenterPad plan applied on the card (fp32, TF32 off) within one
+    uint8 step of the host path, one frame and a batch of padded plans."""
+    from devc_tpu_torch.data.transforms import centerpad_np
+    from devc_tpu_torch.ops import device_resize as dr
+
+    rng = np.random.RandomState(0)
+    raw = rng.randint(0, 256, (720, 1280, 3), dtype=np.uint8)
+    want = centerpad_np(raw, (432, 768)).astype(int)
+    a_h, a_w = (torch.from_numpy(a).to(cuda)
+                for a in dr.centerpad_plan(raw.shape[:2], (432, 768)))
+    got = dr.device_centerpad(torch.from_numpy(raw).to(cuda), a_h, a_w)
+    diff = np.abs(got.cpu().numpy().astype(int) - want)
+    assert diff.max() <= 1 and (diff > 0).mean() < 0.02
+    p_h, p_w = dr.centerpad_plan_padded(raw.shape[:2], (432, 768),
+                                        (800, 1400))
+    padded = np.zeros((2, 800, 1400, 3), np.uint8)
+    padded[:, :720, :1280] = raw
+    got = dr.device_centerpad_batched(
+        torch.from_numpy(padded).to(cuda),
+        torch.from_numpy(np.stack([p_h, p_h])).to(cuda),
+        torch.from_numpy(np.stack([p_w, p_w])).to(cuda))
+    for img in got.cpu().numpy():
+        diff = np.abs(img.astype(int) - want)
+        assert diff.max() <= 1 and (diff > 0).mean() < 0.02

@@ -240,7 +240,10 @@ def test_cuda_request_without_gpu_raises():
 def test_port_imports_no_jax():
     code = ("import sys, devc_tpu_torch.pipeline.video, "
             "devc_tpu_torch.cli.colorize, devc_tpu_torch.ops.cuda_corr, "
-            "devc_tpu_torch.utils.init, devc_tpu_torch.data.transforms; "
+            "devc_tpu_torch.utils.init, devc_tpu_torch.data.transforms, "
+            "devc_tpu_torch.ops.device_resize, devc_tpu_torch.pipeline.graph, "
+            "devc_tpu_torch.pipeline.clip, devc_tpu_torch.pipeline.scheduler, "
+            "devc_tpu_torch.parallel.inference, devc_tpu_torch.cli.serve; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'devc_tpu')); "
             "assert not bad, bad")
