@@ -49,9 +49,13 @@ line {"ok": true, "device": {...}}:
                run with one job at 540x960; colorize_video_multi with
                R = 3 (launches, frame 0 within +-1 of serial runs); scan
                mode (chunk 4) bit-equal to stream, per-frame ms of both;
-               python -m devc_tpu_torch.cli.serve as a subprocess (ready,
-               ping, a job, a batch, shutdown, exit 0); a video file when
-               cv2 imports.
+               the server's request handlers in process, each request
+               twice, with device memory before and after each (a repeat
+               must leave nothing behind), and the device-resized input's
+               difference to the host CenterPad; python -m
+               devc_tpu_torch.cli.serve as a subprocess (ready, ping, a
+               job, a batch, shutdown, exit 0); a video file when cv2
+               imports.
  10. train_parity  one GAN training step at 64x128, batch 2, on the card
                (kernels) against the same step on the CPU in fp32 and in
                float64 (plain versions), same weights and batch.
@@ -63,7 +67,20 @@ line {"ok": true, "device": {...}}:
                recomputation under remat; K2b and K3 once per frame), and a
                checkpoint save / restore that must be bit-equal; then one
                more step under torch.profiler: device time by kernel
-               group and the busy share (`train_profile`).
+               group, the busy share and any FFT / complex-GEMM cuDNN
+               kernels (`train_profile`).
+ 12. cli_train the trainer's entry point in process, on an ImageNet-style
+               and a video-pairs dataset written to a temporary directory:
+               python -m devc_tpu_torch.cli.train for 30 steps at batch
+               16, 216x384, its defaults (8 loader threads, float
+               batches): ms a step, the share of wall time waiting on the
+               loader, peak memory, launches (K1 120, K2b 60, K3 60),
+               every loss finite and the last 8 steps' mean total_loss
+               below the first 8's; 2 steps with --device_preprocess;
+               --resume (restored state bit-equal to the step-30 file,
+               steps 31-32) and its refusal of another VGG; cli.export;
+               cli.colorize --train_ckpt on the 8 frames at 432x768 (K1 8,
+               smooth_pass 48, chroma).
 
 Then the kernel summary line, the nvidia-smi line, and the final line.
 Frames, batches and weights are made from --seed with numpy; nothing is
@@ -969,11 +986,16 @@ def _serve_scheduler(models, tmp, seed, card):
                          jobs[j]["out"] + tag)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = allocated_mib()
         _counts_zero()
         t0 = time.perf_counter()
         results = sched.run()
         torch.cuda.synchronize()
-        return results, _counts(), time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        SERVE_MEMORY.append({"run": "scheduler" + tag, "before_mib": before,
+                             "after_mib": allocated_mib()})
+        return results, counts, wall
 
     sched = ClipBatchScheduler(models, image_size=(H, W), slots=SERVE_SLOTS,
                                out_ext="png")
@@ -1036,6 +1058,10 @@ def _serve_scheduler(models, tmp, seed, card):
     # device_resize: two jobs at 432x768 and one at RESIZE_SRC, raw frames
     # zero-padded to the largest, the CenterPad in the step
     from devc_tpu_torch.data.transforms import centerpad_np
+    from devc_tpu_torch.ops.device_resize import (
+        centerpad_plan_padded,
+        device_centerpad,
+    )
 
     ref, *big = textured_frames(seed + 200, 6, RESIZE_SRC)
     jobs.append(dict(clip=os.path.join(tmp, "big"),
@@ -1054,11 +1080,22 @@ def _serve_scheduler(models, tmp, seed, card):
         got = np.asarray(Image.open(r["outputs"][0]))
         assert got.shape == (H, W, 3), got.shape
         if j == len(jobs) - 1:  # resized: against the host CenterPad's run
-            want = _alone_frame0(models, [centerpad_np(f, (H, W))
-                                          for f in big[:1]], jobs[j]["ref"])
+            host_in = centerpad_np(big[0], (H, W))
+            want = _alone_frame0(models, [host_in], jobs[j]["ref"])
             mse = np.mean((got.astype(float) - want) ** 2)
             frame0[j] = dict(_diff(got, want), psnr=99.0 if mse == 0 else
                              10 * np.log10(255.0 ** 2 / mse))
+            # what the network saw: the device-resized frame (the step's
+            # own plan, padded to the batch's largest source) against the
+            # host CenterPad; and frame 0 run alone on that device input
+            a_h, a_w = (torch.from_numpy(a).to(models.device)
+                        for a in centerpad_plan_padded(RESIZE_SRC, (H, W),
+                                                       RESIZE_SRC))
+            dev_in = device_centerpad(torch.from_numpy(big[0]).to(
+                models.device), a_h, a_w).cpu().numpy()
+            frame0[j]["resized_input_vs_host"] = _diff(dev_in, host_in)
+            frame0[j]["vs_alone_on_device_resized_input"] = _diff(
+                got, _alone_frame0(models, [dev_in], jobs[j]["ref"]))
         else:  # identity plans: as the host path
             frame0[j] = _diff(got, jobs[j]["alone0"])
     case = {"check": "scheduler_device_resize", "slots": SERVE_SLOTS,
@@ -1236,6 +1273,47 @@ def _serve_server(clip, ref_path, tmp, seed):
                     for r in lines])
 
 
+def allocated_mib() -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() / 2**20
+
+
+SERVE_MEMORY: list = []  # allocated MiB around each scheduler run / request
+
+
+def _serve_requests_memory(models, clip, ref_path, tmp):
+    """cli.serve's request handlers in this process, each request twice
+    (a scan job, a stream job, a 2-slot batch): device memory allocated
+    before and after each, to see whether a request leaves anything
+    behind."""
+    from devc_tpu_torch.cli import serve
+
+    reqs = [("job_scan", serve._job, {"mode": "scan", "chunk": 4}),
+            ("job_stream", serve._job, {}),
+            ("batch", serve._batch, {"slots": 2, "jobs": [
+                {"clip_path": clip, "ref_path": ref_path,
+                 "output_path": os.path.join(tmp, f"mem_b{i}")}
+                for i in range(2)]})]
+    for rep in range(2):
+        for name, fn, extra in reqs:
+            job = {"clip_path": clip, "ref_path": ref_path,
+                   "output_path": os.path.join(tmp, f"mem_{name}{rep}"),
+                   **extra}
+            before = allocated_mib()
+            resp = fn(models, job, (H, W), 1e-10)
+            assert resp["ok"] is True, resp
+            SERVE_MEMORY.append({"run": f"request_{name}_{rep}",
+                                 "before_mib": before,
+                                 "after_mib": allocated_mib()})
+    # a request repeated leaves nothing behind (each scan-mode request
+    # once kept a new stream's 32 MiB cuBLAS workspace)
+    grown = [r for r in SERVE_MEMORY[-len(reqs):]
+             if r["after_mib"] != r["before_mib"]]
+    assert not grown, grown
+
+
 def _serve_video(models, frames, ref, tmp):
     """A video file as the clip, when cv2 imports."""
     try:
@@ -1282,17 +1360,21 @@ def phase_serve(models, frames, ref, main_outs, seed: int, card: str):
     import torch
 
     rng = np.random.RandomState(seed + 31)
+    start_mib = allocated_mib()
     k2, k1 = _serve_kernels(rng, models.device)
     tmp = tempfile.mkdtemp(prefix="devc_chip_serve_")
     try:
         jobs, launches = _serve_scheduler(models, tmp, seed, card)
         clip, ref_path = _serve_multi_and_scan(models, tmp, jobs, frames, ref,
                                                main_outs, card)
+        _serve_requests_memory(models, clip, ref_path, tmp)
         _serve_server(clip, ref_path, tmp, seed)
         _serve_video(models, frames, ref, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    emit("serve", check="memory", allocated_mib_at_start=start_mib,
+         allocated_mib_at_end=allocated_mib(), runs=SERVE_MEMORY)
     return k2, k1, launches
 
 
@@ -1482,12 +1564,16 @@ def profile_train_step(step, state, batch, gen, step_ms: float):
                              ProfilerActivity.CUDA]) as prof:
         state, _ = step(state, batch, gen)
         torch.cuda.synchronize()
-    groups, launches = {}, 0
+    groups, launches, fft = {}, 0, {}
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
         launches += 1
         name = evt.name.lower()
+        if "fft" in name or "cf32" in name:
+            row = fft.setdefault(evt.name[:160], {"launches": 0, "ms": 0.0})
+            row["launches"] += 1
+            row["ms"] += evt.time_range.elapsed_us() / 1e3
         group = next((g for g, frags in KERNEL_GROUPS
                       if any(f.lower() in name for f in frags)),
                      "elementwise, reductions, copies")
@@ -1497,7 +1583,8 @@ def profile_train_step(step, state, batch, gen, step_ms: float):
         sorted(groups.items(), key=lambda kv: -kv[1])),
         kernel_ms=kernel_ms, kernel_launches=launches,
         untraced_step_ms=step_ms,
-        busy_share=kernel_ms / step_ms if kernel_ms else "not measured")
+        busy_share=kernel_ms / step_ms if kernel_ms else "not measured",
+        fft_or_cf32_kernels=fft)
     return state
 
 
@@ -1601,6 +1688,327 @@ def phase_train(seed: int, card: str):
     return launches
 
 
+# cli_train: the trainer's entry point at its defaults (batch 16, 216x384)
+# on synthetic datasets written to disk
+CLI_TRAIN_STEPS, CLI_TRAIN_CKPT_STEP = 30, 15
+CLI_TRAIN_STILLS = 64  # ImageNet-style stills, 4 classes of 16
+CLI_TRAIN_VIDEO_HW = (240, 416)  # video-pair frames, center-cropped
+
+
+def write_imagenet_root(root: str, seed: int) -> None:
+    """ImageNet-pairs layout (ImageNetPairsDataset): class folders of
+    textured stills of 240-320 x 400-560 in input/, consecutive stills
+    paired in pairs.txt with a positive score."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    per_class = CLI_TRAIN_STILLS // 4
+    for c in range(4):
+        d = os.path.join(root, f"class{c}", "input")
+        os.makedirs(d)
+        for i in range(per_class):
+            hw = (int(rng.randint(240, 321)), int(rng.randint(400, 561)))
+            (img,) = textured_frames(int(rng.randint(1 << 30)), 1, hw)
+            Image.fromarray(img).save(os.path.join(d, f"img{i}.JPEG"),
+                                      quality=95)
+        with open(os.path.join(root, f"class{c}", "pairs.txt"), "w") as f:
+            for i in range(per_class - 1):
+                f.write(f"img{i}.JPEG img{i + 1}.JPEG 1.0\n")
+
+
+def write_video_root(root: str, seed: int) -> None:
+    """Video-pairs layout (VideoPairsDataset, the reference's
+    lib/videoloader.py): per clip input_pad/ frames, reference/ and
+    reference_gt/ exemplars, flow/ .flo files of a known translation per
+    pair (frame b is frame a moved by (dx, dy)), mask/ occlusion masks
+    (0 where the translation brings in new content), and
+    pairs_output_new.txt."""
+    import numpy as np
+    from PIL import Image
+
+    from devc_tpu_torch.data.flow import write_flo
+
+    rng = np.random.RandomState(seed)
+    h, w = CLI_TRAIN_VIDEO_HW
+    for c in range(2):
+        clip = os.path.join(root, f"clip{c}")
+        for sub in ("input_pad", "reference", "reference_gt", "flow", "mask"):
+            os.makedirs(os.path.join(clip, sub))
+        (base,) = textured_frames(seed + 10 + c, 1, (h + 40, w + 40))
+        shifts = [(0, 0), (3, 2), (6, 5), (8, 9)]
+        for i, (dx, dy) in enumerate(shifts):
+            frame = base[20 - dy:20 - dy + h, 20 - dx:20 - dx + w]
+            Image.fromarray(frame).save(
+                os.path.join(clip, "input_pad", f"f{i}.jpg"), quality=95)
+        refs = textured_frames(seed + 20 + c, 8, (h, w))
+        for i in range(5):
+            Image.fromarray(refs[i]).save(
+                os.path.join(clip, "reference", f"r{i}.JPEG"), quality=95)
+        for i in range(3):
+            Image.fromarray(refs[5 + i]).save(
+                os.path.join(clip, "reference_gt", f"g{i}.jpg"), quality=95)
+        lines = []
+        for i in range(len(shifts) - 1):
+            dx = shifts[i + 1][0] - shifts[i][0]
+            dy = shifts[i + 1][1] - shifts[i][1]
+            fwd = np.empty((h, w, 2), np.float32)
+            fwd[..., 0], fwd[..., 1] = dx, dy
+            write_flo(os.path.join(clip, "flow", f"f{i}_forward.flo"), fwd)
+            write_flo(os.path.join(clip, "flow", f"f{i}_backward.flo"), -fwd)
+            mask = np.full((h, w), 255, np.uint8)
+            mask[:dy], mask[:, :dx] = 0, 0
+            Image.fromarray(mask).save(
+                os.path.join(clip, "mask", f"f{i}_mask.pgm"))
+            lines.append(f"f{i}.jpg f{i + 1}.jpg rv.jpg rv1.jpg r0.J r1.J "
+                         "r2.J r3.J r4.J g0.j g1.j g2.j")
+        with open(os.path.join(clip, "pairs_output_new.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def _train_counts_zero():
+    from devc_tpu_torch.ops import cuda_corr
+
+    for fn in (cuda_corr.corr_fwd, cuda_corr.corr_bwd_dq,
+               cuda_corr.corr_bwd_dkv):
+        fn.launches = 0
+
+
+def _train_counts():
+    from devc_tpu_torch.ops import cuda_corr
+
+    return {"corr_fwd": cuda_corr.corr_fwd.launches,
+            "corr_bwd_dq": cuda_corr.corr_bwd_dq.launches,
+            "corr_bwd_dkv": cuda_corr.corr_bwd_dkv.launches}
+
+
+def _state_blob_equal(a: dict, b: dict) -> bool:
+    """Two checkpoint blobs (nested dicts of tensors and numbers) equal
+    bit for bit."""
+    import torch
+
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(_state_blob_equal(a[k], b[k]) for k in a))
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a.cpu(), b.cpu()))
+    return a == b
+
+
+def phase_cli_train(frames, ref, seed: int, card: str):
+    """python -m devc_tpu_torch.cli.train's main path, in this process, on
+    both training datasets written to disk: 30 steps at the trainer's
+    defaults (batch 16, 216x384, float batches, --workers 8), then a
+    2-step --device_preprocess run, --resume (bit-equal restore of step
+    30, steps 31-32) and its VGG-mismatch refusal, cli.export and
+    cli.colorize --train_ckpt on 8 frames at 432x768. Returns the launch
+    counts of the training run and of the colorize run."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from devc_tpu_torch.cli import colorize as cli_colorize
+    from devc_tpu_torch.cli import export as cli_export
+    from devc_tpu_torch.cli import train as cli_train
+    from devc_tpu_torch.pipeline.frame import PipelineModels
+    from devc_tpu_torch.pipeline.video import colorize_frames
+    from devc_tpu_torch.train import checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="devc_chip_cli_train_")
+    try:
+        imagenet, video = (os.path.join(tmp, d) for d in ("imagenet", "video"))
+        t0 = time.perf_counter()
+        write_imagenet_root(imagenet, seed + 40)
+        write_video_root(video, seed + 41)
+        data_s = time.perf_counter() - t0
+        ckpt, runs = os.path.join(tmp, "ckpt"), os.path.join(tmp, "runs")
+        common = ["--data_root", video, "--data_root_imagenet", imagenet,
+                  "--vgg_ckpt", "/nonexistent/vgg19_conv.pth",
+                  "--seed", str(seed)]
+
+        def train(ckpt_dir, log_dir, *extra):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _train_counts_zero()
+            summary = cli_train.main(common + [
+                "--checkpoint_dir", ckpt_dir, "--log_dir", log_dir,
+                "--print_step", "1", *extra])
+            torch.cuda.synchronize()
+            return (summary, _train_counts(),
+                    torch.cuda.max_memory_allocated() / 2**20)
+
+        summary, launches, peak = train(
+            ckpt, runs, "--max_steps", str(CLI_TRAIN_STEPS),
+            "--checkpoint_step", str(CLI_TRAIN_CKPT_STEP),
+            "--tb_log_step", str(CLI_TRAIN_CKPT_STEP))
+        metrics = [json.loads(line) for line in
+                   open(os.path.join(runs, "metrics.jsonl"))]
+        total = [m["total_loss"] for m in metrics]
+        first8, last8 = statistics.mean(total[:8]), statistics.mean(total[-8:])
+        step_ms = [s * 1e3 for s in summary["step_s"]]
+        case = {
+            "check": "train", "batch": TRAIN_B, "image_size": list(TRAIN_HW),
+            "steps": summary["steps"], "workers": 8,
+            "data_write_s": data_s, "step_ms": step_ms,
+            "median_step_ms_after_first": statistics.median(step_ms[1:]),
+            "step_timer_ema_ms": summary["step_ms_ema"],
+            "loader_wait_ms": [s * 1e3 for s in summary["loader_wait_s"]],
+            "loader_wait_share": summary["loader_wait_share"],
+            "wall_s": summary["wall_s"], "peak_mem_mib": peak,
+            "launches": launches, "total_loss": total,
+            "total_loss_first8_mean": first8, "total_loss_last8_mean": last8,
+            "losses_last": metrics[-1], "checkpoints": sorted(
+                os.listdir(ckpt)), "card": card}
+        emit("cli_train", **case)
+        assert summary["steps"] == CLI_TRAIN_STEPS, summary["steps"]
+        assert [m["step"] for m in metrics] == list(
+            range(1, CLI_TRAIN_STEPS + 1))
+        for m in metrics:
+            assert all(np.isfinite(v) for v in m.values()), m
+        n = CLI_TRAIN_STEPS
+        assert launches == {"corr_fwd": 4 * n, "corr_bwd_dq": 2 * n,
+                            "corr_bwd_dkv": 2 * n}, launches
+        assert last8 < first8, (first8, last8)
+        assert checkpoint.load_run_metadata(ckpt) == {
+            "vgg_source": "random:seed1"}
+
+        # the uint8 contract: Lab, jitter and placeholder on the card
+        dp, dp_launches, dp_peak = train(
+            os.path.join(tmp, "ckpt_dp"), os.path.join(tmp, "runs_dp"),
+            "--max_steps", "2", "--device_preprocess")
+        dp_metrics = [json.loads(line) for line in
+                      open(os.path.join(tmp, "runs_dp", "metrics.jsonl"))]
+        for m in dp_metrics:
+            assert all(np.isfinite(v) for v in m.values()), m
+        assert dp_launches == {"corr_fwd": 8, "corr_bwd_dq": 4,
+                               "corr_bwd_dkv": 4}, dp_launches
+
+        # --resume: the restored state is the step-30 file, bit for bit
+        saved, _ = checkpoint.load_train_state_dict(ckpt, CLI_TRAIN_STEPS)
+        restored = {}
+        real_restore = checkpoint.CheckpointManager.restore
+
+        def recording_restore(self, state_like, step=None):
+            state = real_restore(self, state_like, step)
+            restored["blob"] = {
+                "step": state.step,
+                "params_g": {net: state.params_g[net].state_dict()
+                             for net in ("warpnet", "colorvid")},
+                "params_d": state.params_d.state_dict(),
+                "sn_state": state.sn_state,
+                "opt_state_g": state.opt_state_g._asdict(),
+                "opt_state_d": state.opt_state_d._asdict()}
+            restored["blob"] = _clone_to_cpu(restored["blob"])
+            return state
+
+        checkpoint.CheckpointManager.restore = recording_restore
+        try:
+            res, res_launches, _ = train(ckpt, runs, "--resume",
+                                         "--max_steps", "2",
+                                         "--checkpoint_step",
+                                         str(CLI_TRAIN_CKPT_STEP))
+        finally:
+            checkpoint.CheckpointManager.restore = real_restore
+        bit_equal = _state_blob_equal(restored["blob"], saved)
+        resumed_steps = [json.loads(line)["step"] for line in
+                         open(os.path.join(runs, "metrics.jsonl"))][n:]
+        after = sorted(os.listdir(ckpt))
+
+        # a torch VGG file where the run trained against the seed-1 draw
+        exported = os.path.join(tmp, "exported")
+        t0 = time.perf_counter()
+        cli_export.main(["--train_ckpt", ckpt, "--out", exported,
+                         "--discriminator", "--vgg"])
+        export_s = time.perf_counter() - t0
+        refusal = None
+        try:
+            cli_train.main(common[:-4] + [
+                "--vgg_ckpt", os.path.join(exported, "vgg19_conv.pth"),
+                "--seed", str(seed), "--checkpoint_dir", ckpt,
+                "--log_dir", os.path.join(tmp, "runs_refused"), "--resume",
+                "--max_steps", "1"])
+        except SystemExit as e:
+            refusal = str(e)
+        emit("cli_train", check="resume", restored_step=saved["step"],
+             restore_bit_equal=bit_equal, first_step=res["first_step"],
+             last_step=res["last_step"], metric_steps=resumed_steps,
+             launches=res_launches, checkpoints=after,
+             device_preprocess={"steps": dp["steps"], "launches": dp_launches,
+                                "peak_mem_mib": dp_peak,
+                                "step_ms": [s * 1e3 for s in dp["step_s"]],
+                                "total_loss": [m["total_loss"]
+                                               for m in dp_metrics]},
+             export_s=export_s, exported=sorted(os.listdir(exported)),
+             vgg_mismatch_refusal=refusal, card=card)
+        assert bit_equal, "the restored state differs from the step-30 file"
+        assert (res["first_step"], res["last_step"]) == (n + 1, n + 2), res
+        assert resumed_steps == [n + 1, n + 2], resumed_steps
+        assert f"step_{n + 2:09d}.pt" in after, after
+        assert res_launches == {"corr_fwd": 8, "corr_bwd_dq": 4,
+                                "corr_bwd_dkv": 4}, res_launches
+        assert refusal is not None and "vgg_source" in refusal, refusal
+
+        # the exported files load strictly; cli.colorize --train_ckpt on
+        # the card with the seed-1 VGG the run recorded
+        models = PipelineModels.from_state_dicts({
+            name: torch.load(os.path.join(exported, f), weights_only=True)
+            for name, f in (("vgg", "vgg19_conv.pth"),
+                            ("warpnet", f"nonlocal_net_iter_{n + 2}.pth"),
+                            ("colorvid", f"colornet_iter_{n + 2}.pth"))},
+            "cuda")
+        clip = os.path.join(tmp, "clip")
+        _save_clip(clip, frames)
+        ref_path = os.path.join(tmp, "ref.png")
+        Image.fromarray(ref).save(ref_path)
+        out = os.path.join(tmp, "colorized")
+        _counts_zero()
+        t0 = time.perf_counter()
+        cli_colorize.main([
+            "--clip_path", clip, "--ref_path", ref_path, "--output_path", out,
+            "--train_ckpt", ckpt, "--vgg_ckpt", "/nonexistent/vgg19_conv.pth",
+            "--image_size", str(H), str(W), "--no_video", "--device", "cuda"])
+        torch.cuda.synchronize()
+        colorize_s = time.perf_counter() - t0
+        col_launches = _counts()
+        out_dir = os.path.join(out, "clip_ref")
+        outs = [np.asarray(Image.open(os.path.join(out_dir, f)))
+                for f in sorted(os.listdir(out_dir))]
+        chroma = max(int(np.abs(o[..., 0].astype(int) - o[..., 1]).max())
+                     for o in outs)
+        want0 = []
+        colorize_frames(models, frames[:1], ref, lambda i, a: want0.append(a))
+        # the CLI writes JPEG (q95): frame 0 against the exported weights'
+        # own frame 0, by PSNR
+        mse = np.mean((outs[0].astype(float) - want0[0]) ** 2)
+        psnr = 99.0 if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))
+        emit("cli_train", check="colorize_train_ckpt", frames=len(outs),
+             image_size=[H, W], launches=col_launches, max_r_minus_g=chroma,
+             frame0_psnr_vs_exported_weights=psnr, wall_s=colorize_s,
+             card=card)
+        assert len(outs) == len(frames), len(outs)
+        assert chroma > 3, "outputs are gray: no chroma was added"
+        assert col_launches == {"corr_fwd": len(frames),
+                                "smooth_pass": 6 * len(frames),
+                                "tridiag_pcr": 0}, col_launches
+        assert psnr > 30.0, psnr
+        del models
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, col_launches
+
+
+def _clone_to_cpu(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _clone_to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1645,8 +2053,15 @@ def main(argv=None) -> int:
                                             args.seed, card)
     del models
     torch.cuda.empty_cache()
+    # what stays allocated with every model gone: cuBLAS keeps a workspace
+    # per (handle, stream) it has run on; clearing them shows their share
+    residue = allocated_mib()
+    torch._C._cuda_clearCublasWorkspaces()
+    emit("serve", check="memory_after_models_freed", allocated_mib=residue,
+         allocated_mib_without_cublas_workspaces=allocated_mib())
     phase_train_parity(args.seed)
     train = phase_train(args.seed, card)
+    cli_train, cli_colorize = phase_cli_train(frames, ref, args.seed, card)
 
     # the serving path's shapes beside each kernel's own
     pick = ("b", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
@@ -1664,10 +2079,13 @@ def main(argv=None) -> int:
         [smooth["max_abs_err"]] + [c["max_abs_err"] for c in k2_serve])
     # launches: each driven path's count, read right after that path ran
     # with the counts at 0 (inference main path, the batched serving
-    # scheduler, training main path)
+    # scheduler, the training step, cli.train's 30 steps, cli.colorize
+    # --train_ckpt on its checkpoint)
     by_path = lambda name: {"main": launches.get(name, 0),
                             "serve": serve.get(name, 0),
-                            "train": train.get(name, 0)}
+                            "train": train.get(name, 0),
+                            "cli_train": cli_train.get(name, 0),
+                            "cli_train_colorize": cli_colorize.get(name, 0)}
     for entry in k2["entries"]:  # K2's two entries, each with its counts
         entry["launches_by_path"] = by_path(entry["name"])
         entry["launches"] = sum(entry["launches_by_path"].values())

@@ -8,7 +8,9 @@ exemplar images, in PyTorch.
       --colornet_ckpt checkpoints/.../colornet_iter_76000.pth
 
 --random_init runs the whole pipeline with seeded random weights (the
-same weights as `python -m cli.colorize --random_init --seed s`). A
+same weights as `python -m cli.colorize --random_init --seed s`);
+--train_ckpt runs a checkpoint of `python -m devc_tpu_torch.cli.train`
+with the VGG its run trained against (refusing a mismatch). A
 directory --ref_path colourises the clip against all its exemplars in one
 batched pass (`colorize_video_multi`; a corrupt exemplar is dropped with a
 warning), or one after the other with --serial_refs. --mode scan replays a
@@ -24,11 +26,50 @@ import sys
 import time
 
 
+def _training_vgg(args) -> dict:
+    """The VGG state dict for a cli.train checkpoint (--train_ckpt),
+    resolved as cli.train resolved it: --vgg_ckpt's file where it exists,
+    else the seed-1 host draw cli.train falls back to. The run's
+    run_metadata.json says which one it trained against; a mismatch
+    either way is refused (devc_tpu's cli/colorize.py:39-70)."""
+    import torch
+
+    from devc_tpu_torch.train.checkpoint import load_run_metadata
+    from devc_tpu_torch.utils.convert import vgg19_state_dict
+    from devc_tpu_torch.utils.init import RANDOM_VGG_SOURCE, host_train_vgg_init
+
+    trained_vgg = (load_run_metadata(args.train_ckpt) or {}).get(
+        "vgg_source")  # None for a checkpoint without metadata
+    if os.path.exists(args.vgg_ckpt):
+        if trained_vgg == RANDOM_VGG_SOURCE:
+            raise SystemExit(
+                f"{args.train_ckpt} was trained with the seed-1 random "
+                f"VGG but {args.vgg_ckpt} exists here — inference with "
+                "torch VGG weights would mismatch the trained features. "
+                "Point --vgg_ckpt at a nonexistent path to use the "
+                "random extractor the run trained against."
+            )
+        return torch.load(args.vgg_ckpt, map_location="cpu",
+                          weights_only=True)
+    if (trained_vgg and trained_vgg.startswith("torch:")
+            and not getattr(args, "allow_random_vgg", False)):
+        raise SystemExit(
+            f"{args.train_ckpt} was trained against torch VGG "
+            f"weights ({trained_vgg}) but {args.vgg_ckpt} is "
+            "missing — the random-VGG fallback would silently "
+            "produce wrong colorizations. Provide --vgg_ckpt or "
+            "pass --allow_random_vgg to override."
+        )
+    print(f"WARNING: {args.vgg_ckpt} missing; using the seed-1 random VGG "
+          "(matches cli.train's fallback)", file=sys.stderr)
+    return vgg19_state_dict(host_train_vgg_init())
+
+
 def build_models(args):
-    """PipelineModels on args.device: seeded random weights
-    (--random_init), a training checkpoint's generator (--train_ckpt, where
-    the CLI has it) with the VGG of --vgg_ckpt or, when that file is
-    missing, the seeded draw, or the reference's three .pth files."""
+    """PipelineModels on args.device: a training checkpoint's generator
+    (--train_ckpt) with the VGG its run trained against (`_training_vgg`),
+    seeded random weights (--random_init), or the reference's three .pth
+    files."""
     import torch
 
     from devc_tpu_torch.pipeline.frame import PipelineModels
@@ -42,13 +83,7 @@ def build_models(args):
         from devc_tpu_torch.train.checkpoint import load_train_params_g
 
         sds = load_train_params_g(args.train_ckpt, args.train_ckpt_step)
-        if os.path.exists(args.vgg_ckpt):
-            sds["vgg"] = load(args.vgg_ckpt)
-        else:
-            print(f"WARNING: {args.vgg_ckpt} missing; using the seed-"
-                  f"{args.seed} random VGG", file=sys.stderr)
-            sds["vgg"] = state_dicts_from_numpy(
-                host_pipeline_params(args.seed))["vgg"]
+        sds["vgg"] = _training_vgg(args)
     elif args.random_init:
         sds = state_dicts_from_numpy(host_pipeline_params(args.seed))
     else:
@@ -98,6 +133,15 @@ def main(argv=None):
                         "CUDA graph on the card")
     p.add_argument("--chunk", type=int, default=64,
                    help="frames per host hand-off (mode scan)")
+    p.add_argument("--train_ckpt", type=str, default=None,
+                   help="colorize with a cli.train checkpoint directory "
+                        "(overrides the .pth checkpoint flags)")
+    p.add_argument("--allow_random_vgg", action="store_true",
+                   help="with --train_ckpt: permit the seed-1 random VGG "
+                        "even though the checkpoint records training "
+                        "against torch VGG weights")
+    p.add_argument("--train_ckpt_step", type=int, default=None,
+                   help="checkpoint step to load (default: latest)")
     p.add_argument("--device_resize", action="store_true",
                    help="run the CenterPad resize on the device as two "
                         "matrix products (the host only decodes; one "

@@ -98,8 +98,8 @@ def main(argv=None):
     add_model_args(p)
     p.add_argument("--train_ckpt", type=str, default=None,
                    help="serve the generator of a training checkpoint "
-                        "directory (train/checkpoint.py); the VGG comes "
-                        "from --vgg_ckpt, or the seeded draw without it")
+                        "directory (train/checkpoint.py) with the VGG its "
+                        "run trained against, as cli.colorize does")
     p.add_argument("--train_ckpt_step", type=int, default=None,
                    help="checkpoint step to load (default: the latest)")
     p.add_argument("--no_warmup", action="store_true")

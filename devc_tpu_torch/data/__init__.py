@@ -1,1 +1,3 @@
-"""Host-side frame decoding and geometry (numpy and PIL, no torch)."""
+"""Host-side data: frame decoding and geometry, .flo files, the training
+datasets and their loader, augmentations and the host C++ kernels (numpy,
+scipy, PIL and ctypes; no torch)."""

@@ -25,8 +25,17 @@ class Conv2d(nn.Conv2d):
     487-586 ms and 17.9 GB, one sample at a time 78 ms and 1.4 GB (batch
     1: 21 ms; NVIDIA H100 80GB HBM3, 700 W; `chip_conv_probe.py`). A
     sample then gets batch 1's algorithm and bits. Training (autograd, no
-    inference mode) and the CPU convolve the batch whole. `Conv2d.per_sample = False` turns it off (the probe
-    measures the whole batch that way)."""
+    inference mode) and the CPU convolve the batch whole.
+    `Conv2d.per_sample = False` turns it off (the probe measures the whole
+    batch that way).
+
+    Training keeps the batch whole on purpose. cuDNN runs FFT algorithms
+    there too (560 ms of a 2076 ms step at batch 16, 216x384), but they
+    do not cost the accuracy they cost at inference: at batch 16,
+    128x256, each generator network's gradients lie 1.8% (the critic's
+    0.8%) from a float64 step, against 1.7-1.8% (0.4%) one sample at a
+    time, while per-sample convolutions make the 216x384 step 2778 ms
+    (`chip_conv_probe.py --train`, same card)."""
 
     per_sample = True
 

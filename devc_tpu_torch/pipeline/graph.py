@@ -19,7 +19,10 @@ Capture needs fixed addresses and no host syncs inside the step:
   * one warm-up step runs on a side stream before the capture, so that
     everything done once (the kernel library's load, cudaFuncSetAttribute,
     cuBLAS / cuDNN handles, the colour constants' upload) happens outside
-    it.
+    it. The side stream is one per card, shared by every capture: cuBLAS
+    keeps a 32 MiB workspace for each stream it has run on and never
+    frees it, so a new stream per capture grew a long-lived server's
+    memory by 32 MiB with every scan-mode request.
 cuDNN's autotuner stays off (`torch.backends.cudnn.benchmark` False), so
 the eager and the captured step pick the same algorithms and give the
 same bits. A capture that fails raises: there is no eager path in its
@@ -33,6 +36,14 @@ Graph replays do not run the kernel wrappers' Python, so their
 from __future__ import annotations
 
 import torch
+
+_SIDE_STREAMS: dict = {}  # device -> the warm-up stream of every capture
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
 
 
 class CapturedStep:
@@ -59,7 +70,7 @@ class CapturedStep:
             self.frame = torch.zeros(frame_shape, dtype=torch.uint8,
                                      device=device)
             self.carry = carry.clone()
-            side = torch.cuda.Stream(device)
+            side = _side_stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side):
                 step(self.frame, self.carry)

@@ -53,15 +53,25 @@ from devc_tpu_torch.pipeline.video import (
 
 
 class _Slot:
-    __slots__ = ("job", "frames_q", "reader", "index", "written", "t0")
+    __slots__ = ("job", "frames_q", "reader", "stop", "index", "written",
+                 "t0")
 
     def __init__(self):
         self.job = None
         self.frames_q = None
         self.reader = None
+        self.stop = None  # set: the job is dropped, its reader returns
         self.index = 0
         self.written = []
         self.t0 = 0.0
+
+    def release(self):
+        """Let the job's reader return though its frames are not taken (a
+        job failed or the run ended): a reader blocked on a full queue
+        would otherwise hold its frames, the job and the scheduler (with
+        the models) for the life of the process."""
+        if self.stop is not None:
+            self.stop.set()
 
 
 def _probe_source(clip_path: str):
@@ -161,20 +171,33 @@ class ClipBatchScheduler:
             job["clip_path"])
         os.makedirs(job["output_path"], exist_ok=True)
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
 
         def reader():
             try:
                 for frame in self._frame_iter(job):
-                    q.put(frame)
-                q.put(None)
+                    if not put(frame):
+                        return
+                put(None)
             except Exception as e:  # a decode failure fails the job
-                q.put(e)
+                put(e)
 
-        t = threading.Thread(target=reader, daemon=True)
+        t = threading.Thread(target=reader, daemon=True,
+                             name="devc-scheduler-reader")
         t.start()
         slot.job = job
         slot.frames_q = q
         slot.reader = t
+        slot.stop = stop
         slot.index = 0
         slot.written = []
         slot.t0 = time.time()
@@ -247,6 +270,7 @@ class ClipBatchScheduler:
                         set_plan_row(i, slots[i].job["src_hw"])
                 except Exception as e:  # a bad clip or exemplar: this job
                     results[job_idx] = dict(error=str(e))
+                    slots[i].release()
                     slots[i].job = None
                     continue
                 last[i] = 0.0
@@ -283,6 +307,7 @@ class ClipBatchScheduler:
             """Record a slot's result (done, or its write failed), refill."""
             dt = time.time() - s.t0
             job_idx = s.job["idx"]
+            s.release()
             if job_idx in writer_errs:
                 results[job_idx] = dict(
                     error=f"write failed: {writer_errs[job_idx]}",
@@ -294,77 +319,82 @@ class ClipBatchScheduler:
                     outputs=sorted(s.written))
             refill(i)
 
-        while any(s.job is not None for s in slots):
-            frames, active = [], []
-            for i, s in enumerate(slots):
-                if s.job is None:
-                    frames.append(zero_frame)
-                    continue
-                if s.job["idx"] in writer_errs:  # stop stepping a failed job
-                    finish_job(i, s)
-                    s = slots[i]
+        try:
+            while any(s.job is not None for s in slots):
+                frames, active = [], []
+                for i, s in enumerate(slots):
                     if s.job is None:
                         frames.append(zero_frame)
                         continue
-                frame = s.frames_q.get()
-                if isinstance(frame, Exception):  # a decode failure mid-clip
-                    results[s.job["idx"]] = dict(error=str(frame),
-                                                 outputs=sorted(s.written))
-                    refill(i)
-                    s = slots[i]
-                    if s.job is None:
-                        frames.append(zero_frame)
-                        continue
+                    # stop stepping a job whose write failed
+                    if s.job["idx"] in writer_errs:
+                        finish_job(i, s)
+                        s = slots[i]
+                        if s.job is None:
+                            frames.append(zero_frame)
+                            continue
                     frame = s.frames_q.get()
+                    # a decode failure mid-clip
                     if isinstance(frame, Exception):
-                        # two bad jobs in a row: fail it, idle this step
                         results[s.job["idx"]] = dict(error=str(frame),
-                                                     outputs=[])
+                                                     outputs=sorted(s.written))
                         refill(i)
-                        frames.append(zero_frame)
-                        continue
-                if frame is None:  # the clip ended
-                    finish_job(i, s)
-                    s = slots[i]
-                    if s.job is None:
-                        frames.append(zero_frame)
-                        continue
-                    frame = s.frames_q.get()
-                    if frame is None or isinstance(frame, Exception):
-                        # a first-frame decode error fails the new job (an
-                        # empty clip cannot get here: _probe_source)
+                        s = slots[i]
+                        if s.job is None:
+                            frames.append(zero_frame)
+                            continue
+                        frame = s.frames_q.get()
                         if isinstance(frame, Exception):
+                            # two bad jobs in a row: fail it, idle this step
                             results[s.job["idx"]] = dict(error=str(frame),
                                                          outputs=[])
-                            slots[i].job = None
-                        frames.append(zero_frame)
-                        continue
-                frames.append(frame)
-                active.append(i)
-            if not active:
-                continue
+                            refill(i)
+                            frames.append(zero_frame)
+                            continue
+                    if frame is None:  # the clip ended
+                        finish_job(i, s)
+                        s = slots[i]
+                        if s.job is None:
+                            frames.append(zero_frame)
+                            continue
+                        frame = s.frames_q.get()
+                        if frame is None or isinstance(frame, Exception):
+                            # a first-frame decode error fails the new job (an
+                            # empty clip cannot get here: _probe_source)
+                            if isinstance(frame, Exception):
+                                results[s.job["idx"]] = dict(error=str(frame),
+                                                             outputs=[])
+                                slots[i].job = None
+                            frames.append(zero_frame)
+                            continue
+                    frames.append(frame)
+                    active.append(i)
+                if not active:
+                    continue
 
-            out, last = batched_frame_step(
-                self.models, torch.from_numpy(np.stack(frames)).to(device),
-                last, ref_stack, self.temperature, self.wls,
-                resize_plans=plans)
-            self.steps += 1
-            # the step ran over all B rows; a row that idled on a zero
-            # frame (e.g. refilled after two decode failures in a row) must
-            # not keep that output as its carry, or the job that takes the
-            # slot next would not start from zero as it would alone
-            idle = [i for i in range(b) if i not in active]
-            if idle:
-                last[idle] = 0.0
-            out_np = out.cpu().numpy()
-            for i in active:
-                s = slots[i]
-                path = os.path.join(s.job["output_path"],
-                                    f"{s.index:05d}.{self.out_ext}")
-                write_q.put((s.job["idx"], path, out_np[i]))
-                s.written.append(path)
-                s.index += 1
-
+                out, last = batched_frame_step(
+                    self.models, torch.from_numpy(np.stack(frames)).to(device),
+                    last, ref_stack, self.temperature, self.wls,
+                    resize_plans=plans)
+                self.steps += 1
+                # the step ran over all B rows; a row that idled on a zero
+                # frame (e.g. refilled after two decode failures in a row) must
+                # not keep that output as its carry, or the job that takes the
+                # slot next would not start from zero as it would alone
+                idle = [i for i in range(b) if i not in active]
+                if idle:
+                    last[idle] = 0.0
+                out_np = out.cpu().numpy()
+                for i in active:
+                    s = slots[i]
+                    path = os.path.join(s.job["output_path"],
+                                        f"{s.index:05d}.{self.out_ext}")
+                    write_q.put((s.job["idx"], path, out_np[i]))
+                    s.written.append(path)
+                    s.index += 1
+        finally:
+            for s in slots:
+                s.release()
         write_q.put(None)
         wt.join()
         # write errors that came after the job's last frame

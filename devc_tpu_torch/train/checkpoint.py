@@ -98,10 +98,11 @@ class CheckpointManager:
         return _steps(self.directory)
 
 
-def load_train_params_g(directory: str, step: int | None = None) -> dict:
-    """The generator's state dicts {"warpnet": ..., "colorvid": ...} (the
-    reference's `.pth` layout, on the CPU) from a checkpoint directory, the
-    latest step by default: the deployment artifact, no template needed."""
+def load_train_state_dict(directory: str, step: int | None = None):
+    """(blob, step): a checkpoint's contents on the CPU, the latest step by
+    default, with no template: {"step", "params_g": {"warpnet": state
+    dict, "colorvid": state dict} (the reference's .pth layout),
+    "params_d", "sn_state", "opt_state_g", "opt_state_d"}."""
     directory = os.path.abspath(directory)
     steps = _steps(directory)
     if step is None and not steps:
@@ -109,11 +110,19 @@ def load_train_params_g(directory: str, step: int | None = None) -> dict:
     step = steps[-1] if step is None else step
     blob = torch.load(_path(directory, step), map_location="cpu",
                       weights_only=True)
-    out = {"warpnet": {}, "colorvid": {}}
+    params_g = {"warpnet": {}, "colorvid": {}}
     for k, v in blob["params_g"].items():
         net, name = k.split(".", 1)
-        out[net][name] = v
-    return out
+        params_g[net][name] = v
+    blob["params_g"] = params_g
+    return blob, step
+
+
+def load_train_params_g(directory: str, step: int | None = None) -> dict:
+    """The generator's state dicts {"warpnet": ..., "colorvid": ...} (the
+    reference's `.pth` layout, on the CPU) from a checkpoint directory, the
+    latest step by default: the deployment artifact, no template needed."""
+    return load_train_state_dict(directory, step)[0]["params_g"]
 
 
 def save_run_metadata(directory: str, meta: dict) -> None:

@@ -139,3 +139,33 @@ def apply_updates(module: nn.Module, updates: dict) -> None:
     with torch.no_grad():
         for name, ps in param_groups(module).items():
             torch._foreach_add_(ps, updates[name])
+
+
+def create_train_state(seed: int = 0, warpnet_sd: dict | None = None,
+                       colorvid_sd: dict | None = None, in_ch: int = 7,
+                       device="cuda", **opt_kwargs):
+    """A fresh TrainState and its two optimizers: (state, tx_g, tx_d), as
+    devc_tpu's create_train_state.
+
+    The generator is warm-started from the reference's two .pth state
+    dicts (train.py:467-471) where given, else drawn fresh; the critic is
+    always drawn fresh. Fresh weights are the port's seeded host draws
+    (utils/init.py: WarpNet at seed + 1, ColorVidNet at seed + 2, the
+    critic at seed + 3). They cannot equal devc_tpu's, which come from
+    jax.random splits of PRNGKey(seed): same distributions, other numbers.
+    opt_kwargs go to `make_optimizers` (lr_step=, lr_gamma=, ...).
+    """
+    from devc_tpu_torch.utils import convert, init
+
+    if warpnet_sd is None:
+        warpnet_sd = convert.warpnet_state_dict(init.host_warpnet_init(
+            seed + 1))
+    if colorvid_sd is None:
+        colorvid_sd = convert.colorvidnet_state_dict(
+            init.host_colorvidnet_init(seed + 2, in_ch))
+    critic_sd = convert.discriminator_state_dict(
+        *init.host_discriminator_init(seed + 3))
+    tx_g, tx_d = make_optimizers(**opt_kwargs)
+    state = convert.train_state_from_state_dicts(
+        warpnet_sd, colorvid_sd, critic_sd, tx_g, tx_d, device)
+    return state, tx_g, tx_d

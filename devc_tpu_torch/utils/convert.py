@@ -110,11 +110,17 @@ def checked_device(device) -> torch.device:
 def frozen_vgg(params, device="cuda"):
     """VGG19 from devc_tpu's numpy params on `device`, frozen (eval, no
     parameter gradients; its input can still receive gradient)."""
+    return frozen_vgg_from_state_dict(vgg19_state_dict(params), device)
+
+
+def frozen_vgg_from_state_dict(sd: dict, device="cuda"):
+    """VGG19 from a reference-layout state dict (vgg19_conv.pth), frozen,
+    on `device`; strict load."""
     from devc_tpu_torch.models.vgg19 import VGG19
 
     with torch.device("meta"):
         vgg = VGG19()
-    vgg.load_state_dict(vgg19_state_dict(params), strict=True, assign=True)
+    vgg.load_state_dict(sd, strict=True, assign=True)
     return vgg.to(checked_device(device)).eval().requires_grad_(False)
 
 
@@ -126,6 +132,18 @@ def train_state_from_numpy(params_g, params_d, sn_state, tx_g, tx_d,
     the critic's (devc_tpu layout, e.g. host_discriminator_init). The
     optimizer states start fresh from tx_g / tx_d (train.state.FlatAdam).
     """
+    return train_state_from_state_dicts(
+        warpnet_state_dict(params_g["warpnet"]),
+        colorvidnet_state_dict(params_g["colorvid"]),
+        discriminator_state_dict(params_d, sn_state), tx_g, tx_d, device)
+
+
+def train_state_from_state_dicts(warpnet_sd, colorvid_sd, critic_sd, tx_g,
+                                 tx_d, device="cuda"):
+    """A fresh TrainState (step 0, optimizer states from tx_g / tx_d) on
+    `device` from reference-layout state dicts: WarpNet's, ColorVidNet's
+    (its input width read from conv1_1) and the critic's with its
+    spectral-norm vectors. Each loads with strict=True."""
     from torch import nn
 
     from devc_tpu_torch.models.colorvidnet import ColorVidNet
@@ -137,18 +155,14 @@ def train_state_from_numpy(params_g, params_d, sn_state, tx_g, tx_d,
     from devc_tpu_torch.train.state import TrainState, param_groups
 
     device = checked_device(device)
-    in_ch = np.shape(params_g["colorvid"]["conv1_1a"]["w"])[2]
+    in_ch = colorvid_sd["conv1_1.0.weight"].shape[1]
     with torch.device("meta"):
         gen = nn.ModuleDict({"warpnet": WarpNet(),
                              "colorvid": ColorVidNet(in_ch)})
         disc = Discriminator()
-    gen["warpnet"].load_state_dict(warpnet_state_dict(params_g["warpnet"]),
-                                   strict=True, assign=True)
-    gen["colorvid"].load_state_dict(
-        colorvidnet_state_dict(params_g["colorvid"]), strict=True,
-        assign=True)
-    d_params, sn = split_state_dict(discriminator_state_dict(params_d,
-                                                             sn_state))
+    gen["warpnet"].load_state_dict(warpnet_sd, strict=True, assign=True)
+    gen["colorvid"].load_state_dict(colorvid_sd, strict=True, assign=True)
+    d_params, sn = split_state_dict(critic_sd)
     disc.load_state_dict(d_params, strict=True, assign=True)
     gen, disc = gen.to(device), disc.to(device)
     return TrainState(
@@ -157,3 +171,66 @@ def train_state_from_numpy(params_g, params_d, sn_state, tx_g, tx_d,
                   for k, uv in sn.items()},
         opt_state_g=tx_g.init(param_groups(gen)),
         opt_state_d=tx_d.init(param_groups(disc)))
+
+
+# --- the reference's .pth files from the port's weights --------------------
+# The port's modules already hold the reference key layout, so a state
+# dict is the file's content; these only split, gather and place on the CPU.
+
+
+def _cpu(sd: dict) -> dict:
+    return {k: v.detach().to("cpu", copy=True).contiguous()
+            for k, v in sd.items()}
+
+
+def save_reference_checkpoints(params_g: dict, out_dir: str,
+                               iteration: int = 0):
+    """Write a generator ({"warpnet": state dict, "colorvid": state dict},
+    e.g. train/checkpoint.py::load_train_params_g) as the two .pth files
+    the reference's test.py:150-159 loads (nonlocal_net_iter_N.pth,
+    colornet_iter_N.pth). Returns the paths."""
+    import os
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = (os.path.join(out_dir, f"nonlocal_net_iter_{iteration}.pth"),
+             os.path.join(out_dir, f"colornet_iter_{iteration}.pth"))
+    torch.save(_cpu(params_g["warpnet"]), paths[0])
+    torch.save(_cpu(params_g["colorvid"]), paths[1])
+    return paths
+
+
+def discriminator_reference_state_dict(params_d: dict, sn_state: dict) -> dict:
+    """The port's critic (Discriminator.state_dict() and its sn_state) ->
+    the reference's discriminator_iter_N.pth layout, each conv's u / v
+    back beside its weight (the inverse of split_state_dict)."""
+    from devc_tpu_torch.models.discriminator import layer_table
+
+    out = _cpu(params_d)
+    for name, (path, *_rest) in layer_table().items():
+        for k in ("u", "v"):
+            out[f"{path}.module.weight_{k}"] = (
+                sn_state[name][k].detach().to("cpu", copy=True).reshape(-1))
+    return out
+
+
+def vgg19_gray_state_dict(params) -> dict:
+    """devc_tpu's vgg19_gray params ({"conv0" .. "conv15"}, HWIO) -> the
+    torchvision layout ("0.weight", "2.weight", ..., "34.bias"), the
+    inverse of devc_tpu's vgg19_gray_from_torch."""
+    from devc_tpu_torch.models.vgg19_gray import TORCHVISION_CONV_INDICES
+
+    out = {}
+    for i, idx in enumerate(TORCHVISION_CONV_INDICES):
+        _conv(params[f"conv{i}"], str(idx), out)
+    return out
+
+
+def vgg19_gray_from_state_dict(sd: dict, device="cuda"):
+    """The reference's vgg19_gray.pth (torchvision layout) -> a frozen
+    VGG19Gray on `device`; strict load."""
+    from devc_tpu_torch.models.vgg19_gray import VGG19Gray
+
+    with torch.device("meta"):
+        model = VGG19Gray()
+    model.load_state_dict(sd, strict=True, assign=True)
+    return model.to(checked_device(device)).eval().requires_grad_(False)

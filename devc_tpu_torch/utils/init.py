@@ -37,6 +37,20 @@ def host_vgg19_init(seed=0):
     return {n: _conv(rng, ci, co, 3) for n, ci, co in _CFG}
 
 
+# cli.train's VGG when --vgg_ckpt is missing: the seed-1 host draw, recorded
+# in the run's metadata as RANDOM_VGG_SOURCE; cli.colorize, cli.serve and
+# cli.export take the same draw for such a run. (devc_tpu records the same
+# string for its jax.random draw at PRNGKey(1): other numbers, and its
+# orbax checkpoints cannot be read here anyway.)
+RANDOM_VGG_SEED = 1
+RANDOM_VGG_SOURCE = "random:seed1"
+
+
+def host_train_vgg_init():
+    """The VGG a training run without --vgg_ckpt trains against."""
+    return host_vgg19_init(RANDOM_VGG_SEED)
+
+
 def host_warpnet_init(seed=1):
     rng = np.random.RandomState(seed)
 

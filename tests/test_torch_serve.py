@@ -178,6 +178,30 @@ def test_scheduler_skips_a_bad_job(models, tmp_path):
     assert results[2]["frames"] == 2
 
 
+def test_scheduler_leaves_no_reader_of_a_dropped_job(models, tmp_path):
+    """A job dropped after its frames' reader started (its exemplar is
+    corrupt) must not leave the reader blocked on a full queue: a blocked
+    reader held the scheduler and its models for the process's life."""
+    import threading
+
+    rng = np.random.RandomState(5)
+    clip = _clip(tmp_path, "long", 8, rng)  # more frames than the prefetch
+    ref = _ref(tmp_path, "ref.png", rng)
+    bad_ref = tmp_path / "bad.png"
+    bad_ref.write_bytes(b"not an image")
+    sched = ClipBatchScheduler(models, image_size=(H, W), slots=1, wls=False,
+                               prefetch=2)
+    sched.submit(clip, str(bad_ref), str(tmp_path / "out_bad"))
+    sched.submit(clip, ref, str(tmp_path / "out_good"))
+    before = set(threading.enumerate())
+    results = sched.run()
+    assert "error" in results[0] and results[1]["frames"] == 8
+    started = set(threading.enumerate()) - before
+    for t in started:
+        t.join(timeout=5)
+    assert not [t for t in started if t.is_alive()]
+
+
 def test_scheduler_isolates_a_writer_failure(models, tmp_path, monkeypatch):
     """A failed write (a full disk under one job's output) fails that job;
     the other job in the batch completes."""

@@ -243,7 +243,12 @@ def test_port_imports_no_jax():
             "devc_tpu_torch.utils.init, devc_tpu_torch.data.transforms, "
             "devc_tpu_torch.ops.device_resize, devc_tpu_torch.pipeline.graph, "
             "devc_tpu_torch.pipeline.clip, devc_tpu_torch.pipeline.scheduler, "
-            "devc_tpu_torch.parallel.inference, devc_tpu_torch.cli.serve; "
+            "devc_tpu_torch.parallel.inference, devc_tpu_torch.cli.serve, "
+            "devc_tpu_torch.cli.train, devc_tpu_torch.cli.export, "
+            "devc_tpu_torch.data.native, devc_tpu_torch.data.flow, "
+            "devc_tpu_torch.data.distortion, devc_tpu_torch.data.videoloader, "
+            "devc_tpu_torch.utils.logging, devc_tpu_torch.utils.profiling, "
+            "devc_tpu_torch.models.vgg19_gray, devc_tpu_torch.train.state; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'devc_tpu')); "
             "assert not bad, bad")
