@@ -38,7 +38,21 @@ line {"ok": true, "device": {...}}:
   7. layers    one frame's stages timed one by one with CUDA events.
   8. cli       python -m devc_tpu_torch.cli.colorize on the frames written
                as PNGs, when Pillow is installed (else says it skipped).
-  9. serve     the serving path: K2's batched pass (B = 4 guides, B = 3
+  9. bf16      the bf16 mode (cli.colorize --bf16): K1's bf16 variant at
+               B = 1, N = 5184 and 20736 (T = 1e-10) bit-equal to the fp32
+               kernel on the upcast inputs and against its plain version,
+               with ms, the bf16 bound and SDPA on the bf16 inputs;
+               frame_step in bf16 on the card against the CPU's bf16 path
+               (64x128, teacher-forced); the main path in bf16 on the 8
+               frames (launches: K1's bf16 variant 8, K2 48), scan
+               bit-equal to stream; ms a frame of fp32 and bf16 at
+               432x768 (stream, scan) and 864x1536 (stream); the stages
+               in bf16; cli.colorize with and without --bf16 and
+               cli.evaluate on the card over both outputs; bf16 against
+               fp32 frames (PSNR, largest uint8 difference, share of
+               pixels moved), teacher-forced and free-running, on the
+               random weights (and, in phase cli_train, on its checkpoint).
+ 10. serve     the serving path: K2's batched pass (B = 4 guides, B = 3
                one shared guide, 432x768, both axes) and K1 at B = 4 and
                3 (N = 5184, T = 1e-10) vs their plain versions, with ms,
                bounds and SDPA; ClipBatchScheduler at 432x768 (4 slots,
@@ -56,10 +70,10 @@ line {"ok": true, "device": {...}}:
                devc_tpu_torch.cli.serve as a subprocess (ready, ping, a
                job, a batch, shutdown, exit 0); a video file when cv2
                imports.
- 10. train_parity  one GAN training step at 64x128, batch 2, on the card
+ 11. train_parity  one GAN training step at 64x128, batch 2, on the card
                (kernels) against the same step on the CPU in fp32 and in
                float64 (plain versions), same weights and batch.
- 11. train     the training main path: train_step_u8 at batch 16, 216x384,
+ 12. train     the training main path: train_step_u8 at batch 16, 216x384,
                full width, TrainConfig defaults (T = 0.01, luminance noise
                2.0, remat), 1 warm-up + 4 timed steps: ms per step, peak
                memory, every loss, weights moved, kernel launch counts
@@ -69,7 +83,7 @@ line {"ok": true, "device": {...}}:
                more step under torch.profiler: device time by kernel
                group, the busy share and any FFT / complex-GEMM cuDNN
                kernels (`train_profile`).
- 12. cli_train the trainer's entry point in process, on an ImageNet-style
+ 13. cli_train the trainer's entry point in process, on an ImageNet-style
                and a video-pairs dataset written to a temporary directory:
                python -m devc_tpu_torch.cli.train for 30 steps at batch
                16, 216x384, its defaults (8 loader threads, float
@@ -80,7 +94,8 @@ line {"ok": true, "device": {...}}:
                --resume (restored state bit-equal to the step-30 file,
                steps 31-32) and its refusal of another VGG; cli.export;
                cli.colorize --train_ckpt on the 8 frames at 432x768 (K1 8,
-               smooth_pass 48, chroma).
+               smooth_pass 48, chroma); the bf16 mode's quality on the
+               exported checkpoint (as in phase bf16).
 
 Then the kernel summary line, the nvidia-smi line, and the final line.
 Frames, batches and weights are made from --seed with numpy; nothing is
@@ -121,7 +136,11 @@ TRAIN_N = (TRAIN_HW[0] // 4) * (TRAIN_HW[1] // 4)  # 5184 positions
 # them; HBM3)
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12  # dense, tensor cores
+PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 PEAK_BYTES_PER_S = 3.35e12
+# the bf16 mode's per-frame times: (H, W) of the frames, timed stream and
+# scan (scan only at 432x768)
+BF16_SIZES = ((H, W), (2 * H, 2 * W))
 
 
 def bound(flop: float, nbytes: float) -> dict:
@@ -152,13 +171,15 @@ def textured_frames(seed: int, n: int, hw):
     return out
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2, queued: bool = False) -> float:
+def cuda_ms(fn, reps: int = 10, warmup: int = 2, queued: bool = False,
+            spin_cycles: int = 2_000_000) -> float:
     """Median milliseconds of fn() over reps, each bracketed by CUDA
     events on the current stream. With queued, the card first spins for
-    about a millisecond (torch.cuda._sleep), so the host has enqueued fn's
-    launches before the start event runs: the events then time the
-    device's work alone, not the host's launch cost (which dominates a
-    call of a few microseconds on the card)."""
+    spin_cycles clock cycles (torch.cuda._sleep; the default is about a
+    millisecond), so the host has enqueued fn's launches before the start
+    event runs: the events then time the device's work alone, not the
+    host's launch cost (which dominates a call of a few microseconds on
+    the card). A call of many launches needs a longer spin."""
     import torch
 
     for _ in range(warmup):
@@ -169,7 +190,7 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2, queued: bool = False) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if queued:
-            torch.cuda._sleep(2_000_000)  # clock cycles
+            torch.cuda._sleep(spin_cycles)
         start.record()
         fn()
         end.record()
@@ -703,8 +724,10 @@ def phase_main(models, seed: int, card: str):
     return launches, outs, ref, frames
 
 
-def phase_layers(models, ref, rgb, card: str):
-    """One frame's stages timed apart (CUDA events, median of 5)."""
+def phase_layers(models, ref, rgb, card: str, compute_dtype=None):
+    """One frame's stages timed apart (CUDA events, median of 5); with
+    compute_dtype (bf16 models) the networks' stages in that dtype, as
+    frame_step runs them."""
     import torch
 
     from devc_tpu_torch import colorspace as cs
@@ -717,50 +740,59 @@ def phase_layers(models, ref, rgb, card: str):
 
     dev = models.device
     rgb_t = torch.from_numpy(rgb).to(dev)
-    _, state = video._device_ref_features(models, torch.from_numpy(ref).to(dev))
+    _, state = video._device_ref_features(
+        models, torch.from_numpy(ref).to(dev), compute_dtype)
+    net_dtype = compute_dtype or torch.float32
     times, device_ms = {}, {}
     with torch.inference_mode():
         lab_large, lab_small = video._preprocess_device(rgb_t)
-        a_l = lab_small[..., 0:1]
+        a_l = lab_small[..., 0:1].to(net_dtype)
         hw = (a_l.shape[1], a_l.shape[2])
         feats = vgg19_extract(models.vgg, cs.gray_to_rgb(a_l), FEATURE_TAPS)
         a_n = [cs.feature_normalize(f) for f in feats[1:]]
         theta = embed_queries(models.warpnet, a_n)
         warped, sim = warp_with_keys(theta, state["phi"], state["values"], hw,
-                                     1e-10)
-        x = torch.cat([a_l, warped[..., 1:3], sim, torch.zeros_like(lab_small)],
-                      dim=-1)
-        ab = colorvidnet_apply(models.colorvid, x)
+                                     1e-10, out_dtype=net_dtype)
+        x = torch.cat([a_l, warped[..., 1:3], sim,
+                       torch.zeros_like(lab_small, dtype=net_dtype)], dim=-1)
+        ab = colorvidnet_apply(models.colorvid, x).float()
         ab_up = video._resize_nhwc(ab, (H, W)) * 1.25
         guide = torch.clamp(torch.floor(
             cs.uncenter_l(lab_large[0, ..., 0]) * 255.0 / 100.0), 0.0, 255.0)
 
-        times["preprocess"] = cuda_ms(lambda: video._preprocess_device(rgb_t), 5)
-        times["vgg19"] = cuda_ms(lambda: vgg19_extract(
-            models.vgg, cs.gray_to_rgb(a_l), FEATURE_TAPS), 5)
-        times["embed_queries"] = cuda_ms(lambda: embed_queries(
-            models.warpnet, [cs.feature_normalize(f) for f in feats[1:]]), 5)
-        times["correspondence_k1"] = cuda_ms(lambda: warp_with_keys(
-            theta, state["phi"], state["values"], hw, 1e-10), 5)
-        times["colorvidnet"] = cuda_ms(
-            lambda: colorvidnet_apply(models.colorvid, x), 5)
-        times["upsample_chroma"] = cuda_ms(
-            lambda: video._resize_nhwc(ab, (H, W)) * 1.25, 5)
-        times["fgs_k2"] = cuda_ms(
-            lambda: fast_global_smoother(ab_up[0], guide), 5)
-        # the six launches' device time, the host's launch cost left out
-        device_ms["fgs_k2"] = cuda_ms(
-            lambda: fast_global_smoother(ab_up[0], guide), 5, queued=True)
-        times["lab_to_rgb_u8"] = cuda_ms(lambda: torch.floor(torch.clamp(
-            cs.lab_centered_to_rgb(torch.cat([lab_large[..., 0:1], ab_up],
-                                             dim=-1)), 0, 1) * 255).to(
-            torch.uint8), 5)
-    last = torch.zeros_like(lab_small)
-    times["frame_step"] = cuda_ms(lambda: video.frame_step(
-        models, rgb_t, last, state), 5)
-    emit("layers", ms=times, sum_of_stages_ms=sum(
-        v for k, v in times.items() if k != "frame_step"),
-        device_only_ms=device_ms, card=card)
+        last = torch.zeros_like(lab_small)
+        stages = {
+            "preprocess": lambda: video._preprocess_device(rgb_t),
+            "vgg19": lambda: vgg19_extract(
+                models.vgg, cs.gray_to_rgb(a_l), FEATURE_TAPS),
+            "embed_queries": lambda: embed_queries(
+                models.warpnet, [cs.feature_normalize(f) for f in feats[1:]]),
+            "correspondence_k1": lambda: warp_with_keys(
+                theta, state["phi"], state["values"], hw, 1e-10,
+                out_dtype=net_dtype),
+            "colorvidnet": lambda: colorvidnet_apply(models.colorvid, x),
+            "upsample_chroma": lambda: video._resize_nhwc(ab, (H, W)) * 1.25,
+            "fgs_k2": lambda: fast_global_smoother(ab_up[0], guide),
+            "lab_to_rgb_u8": lambda: torch.floor(torch.clamp(
+                cs.lab_centered_to_rgb(torch.cat([lab_large[..., 0:1], ab_up],
+                                                 dim=-1)), 0, 1) * 255).to(
+                torch.uint8),
+            "frame_step": lambda: video.frame_step(
+                models, rgb_t, last, state, compute_dtype=compute_dtype),
+        }
+        for name, fn in stages.items():
+            times[name] = cuda_ms(fn, 5)
+            # the device's time alone: a ~30 ms spin covers the host's
+            # enqueueing of the longest stage (a bf16 frame step's ~12 ms)
+            device_ms[name] = cuda_ms(fn, 5, queued=True,
+                                      spin_cycles=60_000_000)
+    emit("layers", compute_dtype=str(net_dtype), ms=times,
+         sum_of_stages_ms=sum(
+             v for k, v in times.items() if k != "frame_step"),
+         device_only_ms=device_ms, device_only_sum_of_stages_ms=sum(
+             v for k, v in device_ms.items() if k != "frame_step"),
+         card=card)
+    return times
 
 
 def phase_cli(frames, ref, seed: int, main_outs):
@@ -914,6 +946,7 @@ def _counts_zero():
     from devc_tpu_torch.ops import cuda_corr, fgs
 
     cuda_corr.corr_fwd.launches = 0
+    cuda_corr.corr_fwd.bf16_launches = 0
     fgs.smooth_pass.launches = 0
     fgs.tridiag_pcr.launches = 0
 
@@ -1951,12 +1984,12 @@ def phase_cli_train(frames, ref, seed: int, card: str):
 
         # the exported files load strictly; cli.colorize --train_ckpt on
         # the card with the seed-1 VGG the run recorded
-        models = PipelineModels.from_state_dicts({
+        exported_sds = {
             name: torch.load(os.path.join(exported, f), weights_only=True)
             for name, f in (("vgg", "vgg19_conv.pth"),
                             ("warpnet", f"nonlocal_net_iter_{n + 2}.pth"),
-                            ("colorvid", f"colornet_iter_{n + 2}.pth"))},
-            "cuda")
+                            ("colorvid", f"colornet_iter_{n + 2}.pth"))}
+        models = PipelineModels.from_state_dicts(exported_sds, "cuda")
         clip = os.path.join(tmp, "clip")
         _save_clip(clip, frames)
         ref_path = os.path.join(tmp, "ref.png")
@@ -1993,10 +2026,412 @@ def phase_cli_train(frames, ref, seed: int, card: str):
                                 "tridiag_pcr": 0}, col_launches
         assert psnr > 30.0, psnr
         del models
+        # cli.colorize --train_ckpt --bf16 on the same checkpoint: K1's
+        # bf16 variant once a frame; its frames against the fp32 run's
+        from devc_tpu_torch.ops import cuda_corr
+        from devc_tpu_torch.utils.metrics import psnr as psnr_on
+
+        out16 = os.path.join(tmp, "colorized_bf16")
+        _counts_zero()
+        cli_colorize.main([
+            "--clip_path", clip, "--ref_path", ref_path, "--output_path",
+            out16, "--train_ckpt", ckpt, "--vgg_ckpt",
+            "/nonexistent/vgg19_conv.pth", "--image_size", str(H), str(W),
+            "--no_video", "--device", "cuda", "--bf16"])
+        torch.cuda.synchronize()
+        bf16_launches = dict(_counts(),
+                             corr_fwd_bf16=cuda_corr.corr_fwd.bf16_launches)
+        out16_dir = os.path.join(out16, "clip_ref")
+        outs16 = [np.asarray(Image.open(os.path.join(out16_dir, f)))
+                  for f in sorted(os.listdir(out16_dir))]
+        psnr16 = [psnr_on(a, b, device="cuda") for a, b in zip(outs16, outs)]
+        emit("cli_train", check="colorize_train_ckpt_bf16",
+             frames=len(outs16), launches=bf16_launches,
+             psnr_vs_fp32_run=psnr16, card=card)
+        assert len(outs16) == len(frames), len(outs16)
+        assert bf16_launches["corr_fwd_bf16"] == len(frames), bf16_launches
+        # the bf16 mode's quality on the only trained generator at hand
+        _bf16_quality(exported_sds, frames, ref,
+                      f"cli.train checkpoint, step {n + 2}", card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return launches, col_launches
+
+
+def sdpa_bf16_ms(theta, phi, values, temperature):
+    """Time of one PyTorch call computing K1's out on bf16 inputs: SDPA
+    with scale 1/T on the first fused backend that takes them, the values
+    as they are (width 3) or, where every fused backend refuses that
+    width, zero-padded to 8; the MATH backend last. Returns (ms, "backend
+    name", value width)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k = theta[:, None], phi[:, None]  # one head
+    fused = (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION)
+    for width, backends in ((3, fused), (8, fused), (3, (SDPBackend.MATH,))):
+        v = F.pad(values, (0, width - 3))[:, None]
+        for backend in backends:
+            call = lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=1.0 / temperature)
+            with sdpa_kernel([backend]):
+                try:  # a backend that refuses these inputs raises at once
+                    call()
+                except RuntimeError:
+                    continue
+                return (cuda_ms(call, queued=True),
+                        f"F.scaled_dot_product_attention ({backend.name})",
+                        width)
+    raise RuntimeError("no SDPA backend ran")
+
+
+def k1_bf16_bound(b: int, n: int, c: int = 256) -> dict:
+    """K1 on bf16 embeddings: the score and value products at the card's
+    bf16 tensor rate, against its bytes (theta, phi, values read once in
+    bf16; out written in bf16, sim in fp32)."""
+    flop = 2 * b * n * n * (c + 3)
+    nbytes = 2 * b * n * (2 * c + 3 + 3) + 4 * b * n
+    ops_ms = flop / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flop": flop, "bytes": nbytes, "exponentials": b * n * n}
+
+
+def _k1_bf16_cases(rng, dev):
+    """K1's bf16 variant at B = 1, N = 5184 and 20736, T = 1e-10: bit-equal
+    to the fp32 kernel on the upcast inputs (out rounded to bf16), against
+    the plain bf16 version, ms of both, of the fp32 kernel on the upcast
+    inputs and of SDPA on the bf16 inputs, with the bf16 bound."""
+    import torch
+
+    from devc_tpu_torch.ops.correspondence import correspondence_warp_einsum
+    from devc_tpu_torch.ops.cuda_corr import corr_fwd
+
+    rows = []
+    for n in K1_SIZES:
+        theta, phi, values = (x.bfloat16() for x in
+                              _k1_inputs(rng, 1, n, dev))
+        up = [x.float() for x in (theta, phi, values)]
+        t = 1e-10
+        before = corr_fwd.bf16_launches
+        out, sim, l = corr_fwd(theta, phi, values, t, emit_l=True)
+        out32, sim32, l32 = corr_fwd(*up, t, emit_l=True)
+        want_out, want_sim = correspondence_warp_einsum(theta, phi, values, t)
+        torch.cuda.synchronize()
+        assert corr_fwd.bf16_launches == before + 1
+        bit_equal = bool(torch.equal(out, out32.bfloat16())
+                         and torch.equal(sim, sim32) and torch.equal(l, l32))
+        sim_err = (sim - want_sim).abs().max().item()
+        row_err = (out.float() - want_out.float()).abs().amax(dim=-1)
+        # a row whose two best scores are closer than the summation-order
+        # round-off may pick another key (near-tie flip); every other row
+        # is the same bf16 value, up to one bf16 ulp of |out| <= 100 (0.5)
+        ok = row_err <= 0.5 + 1e-3
+        case = {"kernel": "corr_fwd", "dtype": "bfloat16", "b": 1, "n": n,
+                "c": 256, "temperature": t,
+                "bit_equal_to_fp32_kernel_on_upcast": bit_equal,
+                "sim_max_abs_err": sim_err,
+                "out_max_abs_err_unflipped": row_err[ok].max().item(),
+                "rows_differing": 1.0 - ok.float().mean().item()}
+        emit("bf16", **case)
+        assert bit_equal, case
+        assert sim_err <= 1e-5 and case["rows_differing"] <= 1e-3, case
+        del out, sim, l, out32, sim32, l32, want_out, want_sim
+        torch.cuda.empty_cache()
+        case["ms"] = cuda_ms(lambda: corr_fwd(theta, phi, values, t),
+                             queued=True)
+        case["fp32_kernel_on_upcast_ms"] = cuda_ms(
+            lambda: corr_fwd(*up, t), queued=True)
+        case["plain_ms"] = cuda_ms(lambda: correspondence_warp_einsum(
+            theta, phi, values, t), queued=True)
+        (case["library_ms"], case["library_call"],
+         case["library_value_width"]) = sdpa_bf16_ms(theta, phi, values, t)
+        case.update(k1_bf16_bound(1, n))
+        emit("bf16", **case)
+        rows.append(case)
+        del theta, phi, values, up
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _bf16_parity(sds, seed: int, card: str):
+    """frame_step in bf16 on the card against the CPU's bf16 path, one
+    64x128 frame from a zero carry with the CPU's bf16 exemplar state
+    (teacher-forced), at the bounds of tests/test_torch_bf16.py (with the
+    CPU's own fp32-vs-bf16 distance in place of devc_tpu's): T = 1 pred_ab
+    relative L2 <= 0.15 and below that distance, uint8 within 12; T =
+    1e-10 the share of uint8 pixels off by more than 1 at most that
+    distance's share plus 0.05."""
+    import numpy as np
+    import torch
+
+    from devc_tpu_torch.pipeline import video
+    from devc_tpu_torch.pipeline.frame import PipelineModels
+
+    hw = (64, 128)
+    ref, rgb = (torch.from_numpy(x) for x in textured_frames(seed + 1, 2, hw))
+    bf = torch.bfloat16
+    cpu16 = PipelineModels.from_state_dicts(sds, "cpu", bf)
+    cpu32 = PipelineModels.from_state_dicts(sds, "cpu")
+    gpu16 = PipelineModels.from_state_dicts(sds, "cuda", bf)
+    _, st16 = video._device_ref_features(cpu16, ref, bf)
+    _, st32 = video._device_ref_features(cpu32, ref)
+    last = torch.zeros((1, hw[0] // 2, hw[1] // 2, 3))
+    gst = {k: v.cuda() for k, v in st16.items()}
+    for t in (1.0, 1e-10):
+        want, want_last = video.frame_step(cpu16, rgb, last, st16, t,
+                                           compute_dtype=bf)
+        base, base_last = video.frame_step(cpu32, rgb, last, st32, t)
+        got, got_last = video.frame_step(gpu16, rgb.cuda(), last.cuda(), gst,
+                                         t, compute_dtype=bf)
+        got, got_last = got.cpu(), got_last.cpu()
+        diff = np.abs(got.numpy().astype(int) - want.numpy())
+        gap = np.abs(base.numpy().astype(int) - want.numpy())
+        ab = _rel_l2([got_last[..., 1:].double()],
+                     [want_last[..., 1:].double()])
+        gap_ab = _rel_l2([base_last[..., 1:].double()],
+                         [want_last[..., 1:].double()])
+        case = {"check": "frame_step_vs_cpu_bf16", "hw": hw,
+                "temperature": t, "pred_ab_rel_l2": ab,
+                "cpu_fp32_vs_bf16_rel_l2": gap_ab,
+                "u8_max_diff": int(diff.max()),
+                "u8_share_off_by_more_than_1": float((diff > 1).mean()),
+                "cpu_fp32_vs_bf16_share": float((gap > 1).mean()),
+                "card": card}
+        emit("bf16", **case)
+        assert bool(torch.isfinite(got_last).all()), case
+        if t == 1.0:
+            assert ab <= 0.15 and ab < gap_ab and diff.max() <= 12, case
+        else:
+            assert (diff > 1).mean() <= (gap > 1).mean() + 0.05, case
+
+
+def _device_loop_ms(models, frames, ref, compute_dtype, scan: bool):
+    """ms a frame of the device loop over frames (uint8 on the card, no
+    transfers): eager steps (stream) or replays of one captured step
+    (scan), median of 3 runs."""
+    import numpy as np
+    import torch
+
+    from devc_tpu_torch.pipeline import graph, video
+
+    dev = models.device
+    frames_dev = torch.from_numpy(np.stack(frames)).to(dev)
+    h, w = frames[0].shape[:2]
+    _, state = video._device_ref_features(
+        models, torch.from_numpy(ref).to(dev), compute_dtype)
+    carry = torch.zeros((1, h // 2, w // 2, 3), device=dev)
+    step = lambda f, c: video.frame_step(models, f, c, state,
+                                         compute_dtype=compute_dtype)
+    if scan:
+        replay = graph.CapturedStep(step, (h, w, 3), carry)
+        ms = cuda_ms(lambda: replay.run(frames_dev), reps=3, warmup=1)
+        del replay
+    else:
+        def eager():
+            c = carry
+            for f in frames_dev:
+                _, c = step(f, c)
+        ms = cuda_ms(eager, reps=3, warmup=1)
+    return ms / len(frames)
+
+
+def _bf16_quality(sds, frames, ref, weights: str, card: str):
+    """bf16 frames against fp32 frames on the same weights (the way
+    probes/ab_bf16_quality.py measures it), 432x768, T = 1e-10, WLS on:
+    teacher-forced (frame i's bf16 step from the fp32 carry of frame
+    i - 1) and free-running (the bf16 loop on its own carry). Per frame:
+    PSNR through the port's utils/metrics.py on the card, the largest
+    uint8 difference and the share of pixels that moved."""
+    import numpy as np
+    import torch
+
+    from devc_tpu_torch.pipeline import video
+    from devc_tpu_torch.pipeline.frame import PipelineModels
+    from devc_tpu_torch.utils.metrics import psnr
+
+    bf = torch.bfloat16
+    m32 = PipelineModels.from_state_dicts(sds, "cuda")
+    m16 = PipelineModels.from_state_dicts(sds, "cuda", bf)
+    ref_t = torch.from_numpy(ref).cuda()
+    _, st32 = video._device_ref_features(m32, ref_t)
+    _, st16 = video._device_ref_features(m16, ref_t, bf)
+    frames_t = [torch.from_numpy(f).cuda() for f in frames]
+    last0 = torch.zeros((1, H // 2, W // 2, 3), device="cuda")
+    outs32, carries32, last = [], [], last0
+    for f in frames_t:
+        out, last = video.frame_step(m32, f, last, st32)
+        outs32.append(out)
+        carries32.append(last)
+    forced, free, last = [], [], last0
+    for i, f in enumerate(frames_t):
+        forced.append(video.frame_step(m16, f, carries32[i - 1] if i else
+                                       last0, st16, compute_dtype=bf)[0])
+        out, last = video.frame_step(m16, f, last, st16, compute_dtype=bf)
+        free.append(out)
+
+    def score(outs):
+        res = {"psnr_db": [], "u8_max_diff": [], "share_moved": []}
+        for a, b in zip(outs, outs32):
+            d = (a.int() - b.int()).abs()
+            res["psnr_db"].append(psnr(a, b, device="cuda"))
+            res["u8_max_diff"].append(int(d.max()))
+            res["share_moved"].append(float((d.amax(-1) > 0).float().mean()))
+        res["psnr_mean_db"] = float(np.mean(
+            [p for p in res["psnr_db"] if np.isfinite(p)] or [np.inf]))
+        return res
+
+    case = {"check": "quality_bf16_vs_fp32", "weights": weights,
+            "image_size": [H, W], "frames": len(frames),
+            "temperature": 1e-10, "teacher_forced": score(forced),
+            "free_running": score(free), "card": card}
+    emit("bf16", **case)
+    for o in forced + free:
+        assert o.dtype == torch.uint8 and tuple(o.shape) == (H, W, 3)
+    del m32, m16
+    torch.cuda.empty_cache()
+    return case
+
+
+def _bf16_cli(frames, ref, seed: int, card: str):
+    """python -m devc_tpu_torch.cli.colorize with and without --bf16 on
+    the 8 frames (PNG) at 432x768, then the port's cli.evaluate on the
+    card over the two outputs (bf16 against fp32) and its per-clip
+    temporal score."""
+    from PIL import Image
+
+    tmp = tempfile.mkdtemp(prefix="devc_chip_bf16_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        clip = os.path.join(tmp, "clip")
+        _save_clip(clip, frames)
+        ref_path = os.path.join(tmp, "ref.png")
+        Image.fromarray(ref).save(ref_path)
+        runs = {}
+        for name, extra in (("fp32", []), ("bf16", ["--bf16"])):
+            out = os.path.join(tmp, name)
+            cmd = [sys.executable, "-m", "devc_tpu_torch.cli.colorize",
+                   "--clip_path", clip, "--ref_path", ref_path,
+                   "--output_path", out, "--image_size", str(H), str(W),
+                   "--random_init", "--seed", str(seed), "--no_video",
+                   "--device", "cuda", *extra]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=600, cwd=root)
+            if res.returncode != 0:
+                raise RuntimeError(f"CLI {name} failed ({res.returncode}):\n"
+                                   f"{res.stdout}\n{res.stderr}")
+            runs[name] = {"wall_s": time.perf_counter() - t0,
+                          "dir": os.path.join(out, "clip_ref"),
+                          "stdout": res.stdout.strip().splitlines()[-1:]}
+            assert len(os.listdir(runs[name]["dir"])) == len(frames)
+        cmd = [sys.executable, "-m", "devc_tpu_torch.cli.evaluate",
+               "--dir_a", runs["bf16"]["dir"], "--dir_b", runs["fp32"]["dir"],
+               "--json", "--device", "cuda"]
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                             cwd=root)
+        if res.returncode != 0:
+            raise RuntimeError(f"cli.evaluate failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        report = json.loads(res.stdout.strip().splitlines()[-1])
+        emit("bf16", check="cli_colorize_bf16_and_evaluate",
+             runs={k: {"wall_s": v["wall_s"], "stdout": v["stdout"]}
+                   for k, v in runs.items()},
+             evaluate_bf16_vs_fp32=report, card=card)
+        assert report["frames"] == report["compared"] == len(frames), report
+        return report
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_bf16(sds, frames, ref, seed: int, card: str):
+    """The bf16 mode (cli.colorize --bf16) on the card: K1's bf16 variant
+    (bit-equal to the fp32 kernel on the upcast inputs, against its plain
+    version, ms, bound, SDPA); frame_step against the CPU's bf16 path;
+    the main path (colorize_frames, bf16 models, compute_dtype bf16) on the
+    8 frames at 432x768 with its launches (read right after it ran, the
+    counts at 0 before), scan bit-equal to stream; ms a frame of fp32 and
+    bf16 at 432x768 (stream and scan) and 864x1536 (stream); the stages
+    in bf16; the CLI end to end and cli.evaluate; quality against fp32 on
+    the seeded random weights. Returns (K1's bf16 rows, the launches)."""
+    import numpy as np
+    import torch
+
+    from devc_tpu_torch.ops import cuda_corr
+    from devc_tpu_torch.pipeline.frame import PipelineModels
+    from devc_tpu_torch.pipeline.video import colorize_frames
+
+    bf = torch.bfloat16
+    k1_rows = _k1_bf16_cases(np.random.RandomState(seed + 7), "cuda")
+    _bf16_parity(sds, seed, card)
+
+    m16 = PipelineModels.from_state_dicts(sds, "cuda", bf)
+    events, outs = [], []
+
+    def on_frame(idx, rgb):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        outs.append(rgb)
+
+    _counts_zero()
+    n = colorize_frames(m16, frames, ref, on_frame, temperature=1e-10,
+                        wls=True, compute_dtype=bf)
+    torch.cuda.synchronize()
+    launches = _counts()
+    bf16_k1 = cuda_corr.corr_fwd.bf16_launches
+    per_frame = [events[i - 1].elapsed_time(events[i])
+                 for i in range(1, len(events))]
+    scan = []
+    colorize_frames(m16, frames, ref, lambda i, a: scan.append(a),
+                    temperature=1e-10, wls=True, mode="scan", chunk=4,
+                    compute_dtype=bf)
+    scan_equal = [bool(np.array_equal(a, b)) for a, b in zip(outs, scan)]
+    chroma = max(int(np.abs(o[..., 0].astype(int) - o[..., 1]).max())
+                 for o in outs)
+    emit("bf16", check="main", frames=n, image_size=[H, W],
+         temperature=1e-10, launches=launches, corr_fwd_bf16_launches=bf16_k1,
+         per_frame_ms=per_frame, mean_frame_ms=statistics.mean(per_frame),
+         scan_vs_stream="bit-equal" if all(scan_equal) else scan_equal,
+         max_r_minus_g=chroma, card=card)
+    assert n == N_FRAMES and len(scan) == N_FRAMES, (n, len(scan))
+    assert launches == {"corr_fwd": N_FRAMES, "smooth_pass": 6 * N_FRAMES,
+                        "tridiag_pcr": 0}, launches
+    assert bf16_k1 == N_FRAMES, bf16_k1
+    assert all(scan_equal), scan_equal
+    assert chroma > 3, "outputs are gray: no chroma was added"
+
+    # ms a frame, fp32 and bf16 in turns on the same frames
+    m32 = PipelineModels.from_state_dicts(sds, "cuda")
+    ms = {}
+    for h, w in BF16_SIZES:
+        big = (h, w) != (H, W)
+        fr = textured_frames(seed + 3, N_FRAMES + 1, (h, w)) if big else \
+            [ref] + list(frames)
+        for name, models, dtype in (("fp32", m32, None), ("bf16", m16, bf)):
+            key = f"{h}x{w}"
+            ms.setdefault(key, {})[f"{name}_stream_ms_per_frame"] = \
+                _device_loop_ms(models, fr[1:], fr[0], dtype, scan=False)
+            if not big:
+                ms[key][f"{name}_scan_ms_per_frame"] = _device_loop_ms(
+                    models, fr[1:], fr[0], dtype, scan=True)
+        del fr
+        torch.cuda.empty_cache()
+    emit("bf16", check="ms_per_frame", ms=ms,
+         note="device loop over 8 frames on the card, no transfers; "
+              "median of 3 runs", card=card)
+    del m32
+    layers = phase_layers(m16, ref, frames[0], card, compute_dtype=bf)
+    del m16
+    torch.cuda.empty_cache()
+    _bf16_cli(frames, ref, seed, card)
+    _bf16_quality(sds, frames, ref, f"random (host_pipeline_params({seed}))",
+                  card)
+    return k1_rows, dict(launches), layers
 
 
 def _clone_to_cpu(tree):
@@ -2049,6 +2484,7 @@ def main(argv=None) -> int:
     launches, outs, ref, frames = phase_main(models, args.seed, card)
     phase_layers(models, ref, frames[0], card)
     phase_cli(frames, ref, args.seed, outs)
+    k1_bf16, bf16_launches, _ = phase_bf16(sds, frames, ref, args.seed, card)
     k2_serve, k1_serve, serve = phase_serve(models, frames, ref, outs,
                                             args.seed, card)
     del models
@@ -2063,14 +2499,27 @@ def main(argv=None) -> int:
     train = phase_train(args.seed, card)
     cli_train, cli_colorize = phase_cli_train(frames, ref, args.seed, card)
 
-    # the serving path's shapes beside each kernel's own
+    # the serving path's shapes beside each kernel's own; K1's bf16 variant
+    # at its inference shapes
     pick = ("b", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    for row in k1["by_shape"]:
+        row["dtype"] = "float32"
     k1["by_shape"] += [dict({k: c[k] for k in pick}, n=c["n"],
                             temperature=1e-10, theta=c["theta"],
-                            library_ms=c["library_ms"], path="serve")
+                            library_ms=c["library_ms"], path="serve",
+                            dtype="float32")
                        for c in k1_serve]
+    k1["by_shape"] += [dict(
+        {k: c[k] for k in ("b", "n", "c", "temperature", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms",
+                           "library_call", "library_value_width",
+                           "fp32_kernel_on_upcast_ms", "exponentials",
+                           "bit_equal_to_fp32_kernel_on_upcast")},
+        max_abs_err=max(c["sim_max_abs_err"], c["out_max_abs_err_unflipped"]),
+        dtype="bfloat16", path="bf16") for c in k1_bf16]
     k1["max_abs_err"] = max([k1["max_abs_err"]]
-                            + [c["max_abs_err"] for c in k1_serve])
+                            + [c["max_abs_err"] for c in k1_serve]
+                            + [c["sim_max_abs_err"] for c in k1_bf16])
     smooth = k2["entries"][0]
     smooth["by_shape"] += [dict({k: c[k] for k in pick}, h=c["h"], w=c["w"],
                                 axis=c["axis"], guide=c["guide"],
@@ -2078,10 +2527,11 @@ def main(argv=None) -> int:
     smooth["max_abs_err"] = k2["max_abs_err"] = max(
         [smooth["max_abs_err"]] + [c["max_abs_err"] for c in k2_serve])
     # launches: each driven path's count, read right after that path ran
-    # with the counts at 0 (inference main path, the batched serving
-    # scheduler, the training step, cli.train's 30 steps, cli.colorize
-    # --train_ckpt on its checkpoint)
+    # with the counts at 0 (inference main path, the bf16 mode's main path,
+    # the batched serving scheduler, the training step, cli.train's 30
+    # steps, cli.colorize --train_ckpt on its checkpoint)
     by_path = lambda name: {"main": launches.get(name, 0),
+                            "bf16": bf16_launches.get(name, 0),
                             "serve": serve.get(name, 0),
                             "train": train.get(name, 0),
                             "cli_train": cli_train.get(name, 0),

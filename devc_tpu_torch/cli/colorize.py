@@ -15,7 +15,8 @@ directory --ref_path colourises the clip against all its exemplars in one
 batched pass (`colorize_video_multi`; a corrupt exemplar is dropped with a
 warning), or one after the other with --serial_refs. --mode scan replays a
 captured CUDA graph per frame; --device_resize moves the CenterPad onto
-the device. Any other failure exits non-zero.
+the device; --bf16 runs the networks and the correspondence in bfloat16.
+Any other failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ def build_models(args):
     """PipelineModels on args.device: a training checkpoint's generator
     (--train_ckpt) with the VGG its run trained against (`_training_vgg`),
     seeded random weights (--random_init), or the reference's three .pth
-    files."""
+    files. Every parameter is rounded to bf16 under --bf16."""
     import torch
 
     from devc_tpu_torch.pipeline.frame import PipelineModels
@@ -90,7 +91,9 @@ def build_models(args):
         sds = {name: load(path) for name, path in (
             ("vgg", args.vgg_ckpt), ("warpnet", args.warpnet_ckpt),
             ("colorvid", args.colornet_ckpt))}
-    return PipelineModels.from_state_dicts(sds, args.device)
+    return PipelineModels.from_state_dicts(
+        sds, args.device,
+        dtype=torch.bfloat16 if getattr(args, "bf16", False) else None)
 
 
 def add_model_args(p) -> None:
@@ -142,6 +145,14 @@ def main(argv=None):
                         "against torch VGG weights")
     p.add_argument("--train_ckpt_step", type=int, default=None,
                    help="checkpoint step to load (default: latest)")
+    p.add_argument("--bf16", action="store_true",
+                   help="round every parameter to bfloat16 and run the "
+                        "networks (VGG19, WarpNet, ColorVidNet) and the "
+                        "correspondence in bf16; pre- and post-processing, "
+                        "the recurrent carry and the smoother stay fp32. "
+                        "Several exemplars in one batch compute in fp32 "
+                        "with the bf16-rounded weights (as devc_tpu does). "
+                        "fp32 stays the default for reference parity")
     p.add_argument("--device_resize", action="store_true",
                    help="run the CenterPad resize on the device as two "
                         "matrix products (the host only decodes; one "
@@ -201,12 +212,14 @@ def main(argv=None):
               f"on {args.device}")
         return
 
+    compute_dtype = models.dtype if args.bf16 else None
     for ref, out_dir in zip(refs, out_dirs):
         print(f"colorizing {args.clip_path} with exemplar {ref} -> {out_dir}")
         t0 = time.perf_counter()
         written = colorize_video(
             models, args.clip_path, ref, out_dir,
-            frame_propagate=args.frame_propagate, **common)
+            frame_propagate=args.frame_propagate,
+            compute_dtype=compute_dtype, **common)
         dt = time.perf_counter() - t0
         print(f"  {len(written)} frames in {dt:.1f}s "
               f"({len(written) / dt:.2f} fps incl. set-up) on {args.device}")

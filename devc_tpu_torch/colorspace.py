@@ -4,7 +4,10 @@ The network works in a shifted CIELAB space: L is centered by -50 so L is
 in [-50, 50]; a and b are raw, roughly in [-128, 128]. RGB <-> Lab follows
 the sRGB / D65 definitions; `lab_to_rgb` keeps the reference converter's
 z-clamp and final clip, because its output feeds the frozen VGG network.
-All functions take and return float tensors with channels last.
+All functions take and return float tensors with channels last. In bf16
+(the exemplar under --bf16) `lab_to_rgb` rounds its inexact scalar
+factors to bf16 first, as JAX's weakly typed scalars are, and takes its
+powers in fp32, rounded once (PyTorch's bf16 pow rounds otherwise).
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from devc_tpu_torch.ops.layers import scalar
 
 L_MEAN = 50.0
 
@@ -62,6 +67,12 @@ def uncenter_lab(lab):
     return lab + _const((L_MEAN, 0.0, 0.0), lab)
 
 
+def _pow(x, exponent: float):
+    """x ** exponent in at least fp32, rounded once to x's dtype."""
+    return torch.pow(x.to(torch.promote_types(x.dtype, torch.float32)),
+                     exponent).to(x.dtype)
+
+
 def srgb_to_linear(s):
     return torch.where(s > 0.04045, ((s + 0.055) / 1.055) ** 2.4, s / 12.92)
 
@@ -91,14 +102,17 @@ def lab_to_rgb(lab):
     x = a / 500.0 + y
     z = torch.clamp(y - b / 200.0, min=0.0)
     f = torch.stack([x, y, z], dim=-1)
-    f3 = torch.clamp(f, min=1e-12) ** 3.0
-    xyz = torch.where(f > 0.2068966, f3, (f - 16.0 / 116.0) / 7.787)
+    f3 = _pow(torch.clamp(f, min=1e-12), 3.0)
+    xyz = torch.where(f > 0.2068966,
+                      f3, (f - scalar(16.0 / 116.0, f)) / scalar(7.787, f))
     xyz = xyz * _const(_WHITE, lab)
     rgb_lin = xyz @ _const(_RGB_FROM_XYZ, lab).T
+    s = lambda v: scalar(v, rgb_lin)
     srgb = torch.where(
         rgb_lin > 0.0031308,
-        1.055 * torch.clamp(rgb_lin, min=1e-12) ** (1.0 / 2.4) - 0.055,
-        rgb_lin * 12.92,
+        s(1.055) * _pow(torch.clamp(rgb_lin, min=1e-12), s(1.0 / 2.4))
+        - s(0.055),
+        rgb_lin * s(12.92),
     )
     return torch.clamp(srgb, 0.0, 1.0)
 

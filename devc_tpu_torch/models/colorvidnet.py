@@ -90,7 +90,7 @@ class ColorVidNet(nn.Module):
         """The depthwise 1x1 stride-2 *_ss conv, as a strided slice times a
         per-channel weight (the same values)."""
         w = getattr(self, name).weight  # [C, 1, 1, 1]
-        return x[:, :, ::2, ::2] * w.reshape(1, -1, 1, 1)
+        return x[:, :, ::2, ::2] * w.reshape(1, -1, 1, 1).to(x.dtype)
 
     def forward(self, x):
         """x: [B, 7, H, W] -> ab [B, 2, H, W] in [-128, 128]."""

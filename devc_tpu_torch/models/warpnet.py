@@ -23,6 +23,7 @@ from devc_tpu_torch.ops.correspondence import correspondence_warp
 from devc_tpu_torch.ops.layers import (
     Conv2d,
     InstanceNorm,
+    PReLU,
     ReflectPad,
     instance_norm,
     prelu,
@@ -38,7 +39,7 @@ INTER_CH = 256
 def _conv_block(ci, co, stride=1):
     # indices 0..3 of the reference's pyramid Sequential
     return [ReflectPad(1), Conv2d(ci, co, 3, stride=stride),
-            InstanceNorm(), nn.PReLU()]
+            InstanceNorm(), PReLU()]
 
 
 def _pyramid(kind: str, ci: int, cm: int) -> nn.Sequential:
@@ -63,7 +64,7 @@ class ResidualBlock(nn.Module):
         super().__init__()
         self.conv1 = Conv2d(ch, ch, 3)
         self.conv2 = Conv2d(ch, ch, 3)
-        self.prelu = nn.PReLU()
+        self.prelu = PReLU()
 
     def forward(self, x):
         a = self.prelu.weight
@@ -133,19 +134,23 @@ def embed_keys(model: WarpNet, b_lab, b_feats):
 
 
 def warp_with_keys(theta, phi, values, out_hw, temperature: float = 0.005,
-                   differentiable: bool = False):
+                   differentiable: bool = False, out_dtype=None):
     """Correspondence, then nearest x4 up to out_hw. Returns NHWC
-    warped Lab [B, H, W, 3] and similarity [B, H, W, 1]. differentiable:
-    the correspondence may be differentiated (on the card: K1 with the
-    backward kernels K2b/K3)."""
+    warped Lab [B, H, W, 3] and similarity [B, H, W, 1], cast to
+    out_dtype (the network's dtype, bf16 under --bf16; None keeps the
+    correspondence's dtypes). differentiable: the correspondence may be
+    differentiated (on the card: K1 with the backward kernels K2b/K3)."""
     b = theta.shape[0]
     fh, fw = out_hw[0] // 4, out_hw[1] // 4
     warped, sim = correspondence_warp(theta, phi, values, temperature,
                                       differentiable=differentiable)
     warped = warped.reshape(b, fh, fw, 3).permute(0, 3, 1, 2)
     sim = sim.reshape(b, fh, fw, 1).permute(0, 3, 1, 2)
-    return (upsample_nearest(warped, 4).permute(0, 2, 3, 1),
-            upsample_nearest(sim, 4).permute(0, 2, 3, 1))
+    warped = upsample_nearest(warped, 4).permute(0, 2, 3, 1)
+    sim = upsample_nearest(sim, 4).permute(0, 2, 3, 1)
+    if out_dtype is not None:
+        warped, sim = warped.to(out_dtype), sim.to(out_dtype)
+    return warped, sim
 
 
 def warpnet_apply(model: WarpNet, b_lab, a_feats, b_feats,

@@ -25,6 +25,11 @@ version, which alone has it). Under autograd on CUDA it goes through
 Inference uses T = 1e-10, which makes the softmax an argmax-average over
 exactly tied maxima: both versions subtract the row max first, so
 exp((s - m) / T) is exactly 1 at a tie and 0 elsewhere.
+
+bf16 embeddings (the --bf16 mode) are widened to fp32 for the scores, the
+softmax and the warp, and `out` comes back in bf16, `sim` in fp32: the
+dtypes of devc_tpu's Pallas kernel, whose bf16 products are exact in its
+fp32 accumulation. On the card they run K1's bf16 variant.
 """
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ def correspondence_warp_einsum(theta, phi, values, temperature: float = 0.005,
 
     theta [B, Nq, C], phi [B, Nk, C] (centered, L2-normalised), values
     [B, Nk, V]. Returns warped [B, Nq, V] and similarity [B, Nq, 1], the
-    row max of the raw scores. Computes in fp32 (fp64 for fp64 inputs).
+    row max of the raw scores. Computes in fp32 (fp64 for fp64 inputs);
+    warped comes back in theta's dtype (bf16 for bf16 embeddings), the
+    similarity in the compute dtype.
     """
     dt = torch.promote_types(theta.dtype, torch.float32)
     f = torch.bmm(theta.to(dt), phi.to(dt).transpose(1, 2))
@@ -53,7 +60,7 @@ def correspondence_warp_einsum(theta, phi, values, temperature: float = 0.005,
         f = wta_scale(f, wta_scale_weight)
     attn = torch.softmax((f - f.amax(dim=-1, keepdim=True)) / temperature,
                          dim=-1)
-    return torch.bmm(attn, values.to(dt)), similarity
+    return torch.bmm(attn, values.to(dt)).to(theta.dtype), similarity
 
 
 def correspondence_fwd_plain(theta, phi, values, temperature: float):
@@ -97,7 +104,8 @@ def correspondence_bwd_plain(theta, phi, values, sim, l, out, d_out, d_sim,
 def correspondence_warp(theta, phi, values, temperature: float = 0.005,
                         wta_scale_weight: float = 1.0,
                         differentiable: bool = False):
-    """Dispatch on device: CUDA -> the fused kernel K1, CPU -> plain.
+    """Dispatch on device: CUDA -> the fused kernel K1 (fp32 or bf16),
+    CPU -> plain.
 
     On CUDA, when grad mode is on and an input requires grad, the call
     needs differentiable=True and goes through `CorrFunction` (K1, then

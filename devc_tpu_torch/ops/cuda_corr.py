@@ -1,7 +1,9 @@
 """Wrappers for the correspondence kernels and their autograd Function.
 
   * `corr_fwd`: K1 (`csrc/corr_fwd.cu`), replaces devc_tpu/ops/
-    pallas_corr.py::_corr_fwd_kernel. Plain version:
+    pallas_corr.py::_corr_fwd_kernel, for fp32 or bf16 embeddings (the
+    --bf16 mode; out in bf16, bit-equal to the fp32 kernel on the upcast
+    inputs with out rounded). Plain version:
     `correspondence.correspondence_warp_einsum` (and, emitting l,
     `correspondence.correspondence_fwd_plain`).
   * `corr_bwd_dkv`, `corr_bwd_dq`: K3 and K2b (`csrc/corr_bwd.cu`), replace
@@ -17,9 +19,11 @@
     versions of the same three functions.
 
 The kernel wrappers take CUDA tensors only: each launches its kernel or
-raises. Each counts its launches in `.launches`. `corr_fwd` refuses inputs
+raises. Each counts its launches in `.launches` (`corr_fwd` its bf16
+launches in `.bf16_launches` as well). `corr_fwd` refuses inputs
 that require grad while grad mode is on: its outputs have no grad_fn, and
-returning them would cut the gradient silently.
+returning them would cut the gradient silently. The backward, and so
+`CorrFunction`, takes fp32 only, as devc_tpu's differentiable path.
 """
 
 from __future__ import annotations
@@ -56,11 +60,13 @@ def _key_splits(b: int, nq: int, nk: int, device) -> int:
     return best
 
 
-def _check_input(name, t, shape, fn="corr_fwd", device=None):
+def _check_input(name, t, shape, fn="corr_fwd", device=None,
+                 dtype=torch.float32):
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{fn}: {name} must be a CUDA tensor")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{fn}: {name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{fn}: {name} must be {str(dtype)[6:]}, got "
+                        f"{t.dtype}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{fn}: {name} must be contiguous and 16-byte "
                          "aligned")
@@ -74,10 +80,13 @@ def _check_input(name, t, shape, fn="corr_fwd", device=None):
 def corr_fwd(theta, phi, values, temperature: float, emit_l: bool = False):
     """Fused correlation, online softmax and warp on the card.
 
-    theta [B, Nq, C], phi [B, Nk, C], values [B, Nk, 3]: fp32, contiguous,
-    on one CUDA device, C a multiple of 32. Returns out [B, Nq, 3], sim
-    [B, Nq, 1] (the row max) and, with emit_l, the softmax denominator
-    l [B, Nq, 1] relative to that max (else None).
+    theta [B, Nq, C], phi [B, Nk, C], values [B, Nk, 3]: all fp32 or all
+    bf16, contiguous, on one CUDA device, C a multiple of 32. Returns out
+    [B, Nq, 3] in the inputs' dtype, sim [B, Nq, 1] (the row max) and,
+    with emit_l, the softmax denominator l [B, Nq, 1] relative to that max
+    (else None), both fp32: the Pallas kernel's output dtypes. bf16 inputs
+    run the kernel's bf16 variant, with the values upcast to fp32 here
+    (exact; a 6-byte bf16 row does not suit the kernel's copies).
     """
     if theta.dim() != 3 or phi.dim() != 3 or values.dim() != 3:
         raise ValueError("corr_fwd: theta, phi, values must be [B, N, C]")
@@ -93,21 +102,30 @@ def corr_fwd(theta, phi, values, temperature: float, emit_l: bool = False):
         raise ValueError(f"corr_fwd: channels must be a multiple of 32, got {c}")
     if nq == 0 or nk == 0:
         raise ValueError("corr_fwd: empty query or key set")
-    _check_input("theta", theta, (b, nq, c))
-    _check_input("phi", phi, (b, nk, c), device=theta.device)
-    _check_input("values", values, (b, nk, 3), device=theta.device)
+    dtype = theta.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"corr_fwd: theta must be float32 or bfloat16, got "
+                        f"{dtype}")
+    _check_input("theta", theta, (b, nq, c), dtype=dtype)
+    _check_input("phi", phi, (b, nk, c), device=theta.device, dtype=dtype)
+    _check_input("values", values, (b, nk, 3), device=theta.device,
+                 dtype=dtype)
 
     lib = load_kernels()
     dev = theta.device
-    out = torch.empty((b, nq, 3), dtype=torch.float32, device=dev)
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        values = values.float()
+    out = torch.empty((b, nq, 3), dtype=dtype, device=dev)
     sim = torch.empty((b, nq, 1), dtype=torch.float32, device=dev)
     l = torch.empty((b, nq, 1), dtype=torch.float32, device=dev) if emit_l else None
     splits = _key_splits(b, nq, nk, dev)
     # per key range: the partial (m, l, acc[3]) of every row, merged after
     part = (torch.empty((splits, b, nq, 5), dtype=torch.float32, device=dev)
             if splits > 1 else None)
+    entry = lib.devc_corr_fwd_bf16 if bf16 else lib.devc_corr_fwd
     with torch.cuda.device(dev):
-        code = lib.devc_corr_fwd(
+        code = entry(
             theta.data_ptr(), phi.data_ptr(), values.data_ptr(),
             out.data_ptr(), sim.data_ptr(),
             l.data_ptr() if emit_l else None,
@@ -117,10 +135,12 @@ def corr_fwd(theta, phi, values, temperature: float, emit_l: bool = False):
         )
     check(code, "corr_fwd")
     corr_fwd.launches += 1
+    corr_fwd.bf16_launches += bf16
     return out, sim, l
 
 
 corr_fwd.launches = 0
+corr_fwd.bf16_launches = 0
 
 
 def _splits(blocks: int, units: int, slots: int) -> int:
@@ -321,6 +341,10 @@ class CorrFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, theta, phi, values, temperature: float):
+        if any(t.dtype == torch.bfloat16 for t in (theta, phi, values)):
+            raise TypeError("CorrFunction: the differentiable correspondence "
+                            "is fp32 only (as devc_tpu's); bf16 runs under "
+                            "inference")
         if theta.device.type == "cuda":
             out, sim, l = corr_fwd(theta, phi, values, temperature,
                                    emit_l=True)

@@ -7,13 +7,39 @@ LeakyReLU, ReflectionPad2d and replicate padding. Convolutions are
 `Conv2d`, an `nn.Conv2d` (same parameters and keys) that runs a batch
 one sample at a time on the card under inference mode. `unfold_patches`
 (the losses' F.unfold) takes devc_tpu's NHWC layout, as its callers do.
+
+Every layer computes in its input's dtype: `Conv2d`, `PReLU` and `prelu`
+cast their parameters to it, as devc_tpu's conv2d / prelu do, so bf16
+weights under an fp32 activation compute in fp32 with bf16-rounded
+weights (devc_tpu's batched-exemplar path under --bf16). Where the
+weights are stored in the compute dtype the cast is skipped. In bf16 the
+rounding points are devc_tpu's: a convolution's bias is added after its
+output is rounded, and a Python scalar factor is rounded to bf16 first
+(`scalar`), as JAX's weakly typed scalars are; PyTorch would otherwise
+round once after the bias and keep the scalar in fp32.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype) -> float:
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def scalar(value: float, like: torch.Tensor) -> float:
+    """A Python scalar as JAX applies it to `like`: rounded to like's dtype
+    when that is narrower than fp32 (bf16), else unchanged (PyTorch's fp32
+    and fp64 arithmetic already takes it at that precision)."""
+    if like.dtype.itemsize >= 4:
+        return value
+    return _rounded(value, like.dtype)
 
 
 class Conv2d(nn.Conv2d):
@@ -40,11 +66,23 @@ class Conv2d(nn.Conv2d):
     per_sample = True
 
     def forward(self, x):
+        w, b = self.weight, self.bias
+        if w.dtype != x.dtype:
+            w = w.to(x.dtype)
+            b = b.to(x.dtype) if b is not None else None
+        # bf16: the bias goes on after the convolution's output is rounded
+        # (devc_tpu's `conv(x, w) + b`); fused, PyTorch rounds once
+        late_bias = b if b is not None and x.dtype.itemsize < 4 else None
+        if late_bias is not None:
+            b = None
         if (self.per_sample and x.shape[0] > 1 and x.is_cuda
                 and torch.is_inference_mode_enabled()):
-            return torch.cat([super(Conv2d, self).forward(s)
-                              for s in x.split(1)])
-        return super().forward(x)
+            y = torch.cat([self._conv_forward(s, w, b) for s in x.split(1)])
+        else:
+            y = self._conv_forward(x, w, b)
+        if late_bias is not None:
+            y = y + late_bias.reshape(1, -1, 1, 1)
+        return y
 
 
 def instance_norm(x, eps: float = 1e-5):
@@ -64,12 +102,22 @@ class InstanceNorm(nn.Module):
 
 
 def prelu(x, a):
-    """PReLU with a single shared slope `a` (a 1-element tensor)."""
-    return torch.clamp(x, min=0) + a * torch.clamp(x, max=0)
+    """PReLU with a single shared slope `a` (a 1-element tensor), in x's
+    dtype."""
+    return torch.clamp(x, min=0) + a.to(x.dtype) * torch.clamp(x, max=0)
+
+
+class PReLU(nn.PReLU):
+    """nn.PReLU (same parameter and key) whose slope takes the input's
+    dtype."""
+
+    def forward(self, x):
+        return F.prelu(x, self.weight.to(x.dtype))
 
 
 def leaky_relu(x, negative_slope: float = 0.2):
-    return torch.clamp(x, min=0) + negative_slope * torch.clamp(x, max=0)
+    return (torch.clamp(x, min=0)
+            + scalar(negative_slope, x) * torch.clamp(x, max=0))
 
 
 def reflect_pad(x, pad: int):

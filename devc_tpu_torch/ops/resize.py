@@ -9,6 +9,7 @@ image, is the one devc_tpu builds as interpolation matrices.
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 
@@ -26,8 +27,18 @@ def upsample_nearest(x, scale: int):
 
 
 def avg_pool(x, window: int):
-    """[N, C, H, W] average pooling, stride = window, no padding."""
-    return F.avg_pool2d(x, window)
+    """[N, C, H, W] average pooling, stride = window, no padding. Below
+    fp32 (bf16) the window is summed in x's dtype, one rounded add at a
+    time in row-major order, then divided: devc_tpu's reduce_window in
+    bf16, bit for bit."""
+    if x.dtype.itemsize >= 4:
+        return F.avg_pool2d(x, window)
+    h, w = x.shape[-2] // window * window, x.shape[-1] // window * window
+    acc = torch.zeros_like(x[..., :h:window, :w:window])
+    for dy in range(window):
+        for dx in range(window):
+            acc = acc + x[..., dy:h:window, dx:w:window]
+    return acc / (window * window)
 
 
 def max_pool(x, window: int):

@@ -44,16 +44,22 @@ class PipelineModels(nn.Module):
         self.colorvid = ColorVidNet()
 
     @classmethod
-    def from_state_dicts(cls, state_dicts: dict, device) -> "PipelineModels":
+    def from_state_dicts(cls, state_dicts: dict, device,
+                         dtype=None) -> "PipelineModels":
         """Build on `device` from {"vgg", "warpnet", "colorvid"} state dicts
-        in the reference layout; each loads with strict=True. A CUDA
-        device without a GPU raises: nothing falls back to the CPU."""
+        in the reference layout; each loads with strict=True. dtype (e.g.
+        torch.bfloat16 for --bf16) rounds every parameter to it on the
+        host, to nearest even, as devc_tpu's `jnp.asarray(p, bfloat16)`
+        does, before the move. A CUDA device without a GPU raises:
+        nothing falls back to the CPU."""
         device = checked_device(device)
         with torch.device("meta"):  # no throw-away default init
             models = cls()
         for name in ("vgg", "warpnet", "colorvid"):
             getattr(models, name).load_state_dict(
                 state_dicts[name], strict=True, assign=True)
+        if dtype is not None:
+            models = models.to(dtype)
         models = models.to(device).eval()
         models.requires_grad_(False)
         return models
@@ -61,6 +67,11 @@ class PipelineModels(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.vgg.conv1_1.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The parameters' dtype (bf16 under --bf16)."""
+        return self.vgg.conv1_1.weight.dtype
 
 
 def extract_reference_features(vgg: VGG19, ref_lab):
@@ -106,7 +117,8 @@ def warp_color(models, a_l, ref_state, temperature: float = 0.01,
     if "phi" in ref_state:
         theta = query_embedding(models, a_l)
         return warp_with_keys(theta, ref_state["phi"], ref_state["values"],
-                              hw, temperature, differentiable)
+                              hw, temperature, differentiable,
+                              out_dtype=a_l.dtype)
     b_n = [cs.feature_normalize(f.detach()) for f in ref_state["features"][1:]]
     return warpnet_apply(models.warpnet, ref_state["lab"],
                          _frame_features(models, a_l), b_n,

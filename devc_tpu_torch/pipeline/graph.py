@@ -23,6 +23,8 @@ Capture needs fixed addresses and no host syncs inside the step:
     keeps a 32 MiB workspace for each stream it has run on and never
     frees it, so a new stream per capture grew a long-lived server's
     memory by 32 MiB with every scan-mode request.
+The step may run its networks in bf16 (--bf16): the frame buffer stays
+uint8 and the carry fp32, so the capture is the same.
 cuDNN's autotuner stays off (`torch.backends.cudnn.benchmark` False), so
 the eager and the captured step pick the same algorithms and give the
 same bits. A capture that fails raises: there is no eager path in its

@@ -18,6 +18,15 @@ conversion, the x0.5 downscale, colourisation, the ab upsample x2 with the
   * `colorize_video` / `colorize_video_multi`: those loops with a
     decode-ahead thread and an encode-behind writer thread.
 PIL and cv2 are imported only where frames are read or written.
+
+compute_dtype=torch.bfloat16 (cli.colorize --bf16, with models built in
+bf16) runs the networks (VGG, WarpNet, ColorVidNet) and K1 in bf16, as
+devc_tpu's `_frame_body(compute_dtype="bfloat16")`: the network input and
+the carry are cast to bf16, the exemplar's state is prepared in bf16 from
+its fp32 Lab; pre- and post-processing, the carry, the smoother (K2) and
+Lab -> uint8 stay fp32. The batched-exemplar drivers take no
+compute_dtype (nor does devc_tpu's): with bf16 models they compute in fp32
+with bf16-rounded weights.
 """
 
 from __future__ import annotations
@@ -190,17 +199,23 @@ def _postprocess(lab_large, pred_ab, wls: bool):
 
 
 @torch.inference_mode()
-def _device_ref_features_multi(models: PipelineModels, refs_rgb_u8):
+def _device_ref_features_multi(models: PipelineModels, refs_rgb_u8,
+                               compute_dtype=None):
     """Exemplar preparation for R stacked exemplars uint8 [R, H, W, 3]:
-    (ref_lab_small [R, H/2, W/2, 3], ref_state batched over R)."""
+    (ref_lab_small [R, H/2, W/2, 3], ref_state batched over R). With
+    compute_dtype the state is computed from the Lab cast to it;
+    ref_lab_small stays fp32."""
     use_full_fp32()
     _, ref_lab_small = _preprocess_batch(refs_rgb_u8)
-    return ref_lab_small, prepare_reference(models, ref_lab_small)
+    net_lab = (ref_lab_small if compute_dtype is None
+               else ref_lab_small.to(compute_dtype))
+    return ref_lab_small, prepare_reference(models, net_lab)
 
 
-def _device_ref_features(models: PipelineModels, ref_rgb_u8):
+def _device_ref_features(models: PipelineModels, ref_rgb_u8,
+                         compute_dtype=None):
     """Exemplar preparation, once per clip: (ref_lab_small, ref_state)."""
-    return _device_ref_features_multi(models, ref_rgb_u8[None])
+    return _device_ref_features_multi(models, ref_rgb_u8[None], compute_dtype)
 
 
 def _plan_on(resize_plan, device):
@@ -213,15 +228,21 @@ def _plan_on(resize_plan, device):
 
 @torch.inference_mode()
 def step_body(models: PipelineModels, frames_u8, last_lab, ref_state,
-              temperature: float = 1e-10, wls: bool = True):
+              temperature: float = 1e-10, wls: bool = True,
+              compute_dtype=None):
     """One step over B frames on the device, each with its own carry and
     exemplar row: uint8 [B, H, W, 3] -> (uint8 RGB [B, H, W, 3], new
     carry [B, H/2, W/2, 3] = [L, predicted ab]). One K1 launch at batch B
     and six K2 launches, one per smoother pass, each with a guide per
-    frame."""
+    frame. compute_dtype: the networks' dtype (module docstring); the
+    carry stays fp32."""
     use_full_fp32()
     lab_large, lab_small = _preprocess_batch(frames_u8)
-    pred_ab = frame_colorization(models, lab_small, last_lab, ref_state,
+    net_in, net_last = lab_small, last_lab
+    if compute_dtype is not None:
+        net_in, net_last = (lab_small.to(compute_dtype),
+                            last_lab.to(compute_dtype))
+    pred_ab = frame_colorization(models, net_in, net_last, ref_state,
                                  temperature)[0].float()
     new_last = torch.cat([lab_small[..., 0:1], pred_ab], dim=-1)
     return _postprocess(lab_large, pred_ab, wls), new_last
@@ -230,17 +251,18 @@ def step_body(models: PipelineModels, frames_u8, last_lab, ref_state,
 @torch.inference_mode()
 def frame_step(models: PipelineModels, rgb_u8, last_lab, ref_state,
                temperature: float = 1e-10, wls: bool = True,
-               resize_plan=None):
+               resize_plan=None, compute_dtype=None):
     """One frame on the device: uint8 [H, W, 3] -> (uint8 RGB [H, W, 3],
     new carry [1, H/2, W/2, 3] = [L, predicted ab]).
 
     resize_plan: optional (A_h, A_w) fp32 tensors on the device
     (ops/device_resize.py::centerpad_plan): rgb_u8 is then the raw decoded
-    frame, and the CenterPad runs here as two matrix products."""
+    frame, and the CenterPad runs here as two matrix products.
+    compute_dtype: see `step_body`; ref_state must be prepared with it."""
     if resize_plan is not None:
         rgb_u8 = device_centerpad(rgb_u8, *resize_plan)
     out, new_last = step_body(models, rgb_u8[None], last_lab, ref_state,
-                              temperature, wls)
+                              temperature, wls, compute_dtype)
     return out[0], new_last
 
 
@@ -358,7 +380,8 @@ def _check_exemplars(refs_rgb_u8):
 def colorize_frames(models: PipelineModels, frames, ref_rgb_u8, on_frame,
                     temperature: float = 1e-10, wls: bool = True,
                     frame_propagate: bool = False, mode: str = "stream",
-                    chunk: int = 64, resize_plan=None) -> int:
+                    chunk: int = 64, resize_plan=None,
+                    compute_dtype=None) -> int:
     """Colourise decoded frames against one exemplar, in order.
 
     frames: iterable of uint8 [H, W, 3] arrays of the exemplar's shape
@@ -368,20 +391,21 @@ def colorize_frames(models: PipelineModels, frames, ref_rgb_u8, on_frame,
     frame used as its own exemplar) instead of zeros. on_frame(idx, rgb)
     receives each uint8 output on the host. mode / chunk: see `_run_clip`.
     resize_plan: an optional numpy (A_h, A_w) CenterPad plan
-    (ops/device_resize.py), applied on the device. Returns the frame
-    count.
+    (ops/device_resize.py), applied on the device. compute_dtype: the
+    networks' dtype (torch.bfloat16 with bf16 models; module docstring).
+    Returns the frame count.
     """
     shape = _check_exemplars(np.asarray(ref_rgb_u8)[None])
     device = models.device
     ref_lab_small, ref_state = _device_ref_features(
-        models, _to_device_u8(ref_rgb_u8, shape, device))
+        models, _to_device_u8(ref_rgb_u8, shape, device), compute_dtype)
     last_lab = (ref_lab_small if frame_propagate
                 else torch.zeros_like(ref_lab_small))
     plan = _plan_on(resize_plan, device)
 
     def step(rgb, last):
         return frame_step(models, rgb, last, ref_state, temperature, wls,
-                          plan)
+                          plan, compute_dtype)
 
     return _run_clip(step, frames, _frame_shape(shape, resize_plan),
                      last_lab, on_frame, mode, chunk)
@@ -538,7 +562,8 @@ def colorize_video(models: PipelineModels, clip_dir: str, ref_path: str,
                    temperature: float = 1e-10, wls: bool = True,
                    frame_propagate: bool = False, write_video: bool = True,
                    mode: str = "stream", chunk: int = 64,
-                   device_resize: bool = False, out_ext: str = "jpg"):
+                   device_resize: bool = False, out_ext: str = "jpg",
+                   compute_dtype=None):
     """Colourise every frame of clip_dir, a folder of frames or a video
     file (.mp4, .avi, .mov, .mkv, .webm; cv2 decode), with the exemplar at
     ref_path (or, with frame_propagate, the first frame), at image_size
@@ -551,7 +576,8 @@ def colorize_video(models: PipelineModels, clip_dir: str, ref_path: str,
     device_resize runs the CenterPad on the device (two matrix products,
     ops/device_resize.py) and leaves the host only the decode; the clip
     must have one resolution; outputs may differ from the host path's by
-    one uint8 step on truncation ties.
+    one uint8 step on truncation ties. compute_dtype=torch.bfloat16 (with
+    bf16 models) runs the networks in bf16 (module docstring).
     """
     frames, plan, first_padded = _frame_source(clip_dir, image_size,
                                                device_resize)
@@ -567,7 +593,7 @@ def colorize_video(models: PipelineModels, clip_dir: str, ref_path: str,
 
     _drive(frames, write_frame, lambda decoded, put: colorize_frames(
         models, decoded, ref_rgb, put, temperature, wls, frame_propagate,
-        mode, chunk, plan))
+        mode, chunk, plan, compute_dtype))
     if write_video:
         folder_to_video(output_dir, os.path.join(output_dir, "video.avi"))
     return sorted(written)

@@ -35,6 +35,8 @@ _SIGNATURES = {
     # theta, phi, values, out, sim, l_out, part, batch, nq, nk, c, splits,
     # inv_t, stream
     "devc_corr_fwd": ([_P] * 7 + [_I] * 5 + [ctypes.c_float, _P], _I),
+    # the same, theta / phi / out in bf16
+    "devc_corr_fwd_bf16": ([_P] * 7 + [_I] * 5 + [ctypes.c_float, _P], _I),
     # a, b, c, d, x, n_sys, len, stream
     "devc_tridiag_pcr": ([_P] * 5 + [_I, _I, _P], _I),
     # src, guide, out, batch, h, w, axis, guide_bstride, lam, sigma, stream

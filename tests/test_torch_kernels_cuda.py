@@ -128,6 +128,53 @@ def test_corr_fwd_rejects_bad_inputs(cuda):
                            phi[..., :40].contiguous(), values, 0.01)
 
 
+# bf16 embeddings (the --bf16 mode): C = 320 and 512 keep the query tile
+# resident in bf16 but not in fp32, so both of the kernel's forms meet
+@pytest.mark.parametrize("b,nq,nk,c", [(1, 5184, 5184, 256), (2, 200, 312, 64),
+                                       (1, 33, 65, 320), (1, 130, 4500, 512)])
+@pytest.mark.parametrize("temperature", [0.01, 1e-10])
+def test_corr_fwd_bf16_is_fp32_on_upcast_inputs(cuda, b, nq, nk, c,
+                                                temperature):
+    """K1's bf16 variant: bit-equal to the fp32 kernel run on the upcast
+    inputs (bf16 products are exact in fp32 and the channel order is the
+    same), out rounded to bf16; sim and l fp32. Against the plain bf16
+    version: the fp32 tolerances above (sim 1e-5; out 1e-3 at T = 0.01,
+    near-tie flips at T = 1e-10), out compared after its bf16 rounding
+    (plus one bf16 ulp of |out| <= 100, 0.5)."""
+    theta, phi, values = (x.bfloat16() for x in
+                          _corr_inputs(b, nq, nk, c, cuda))
+    before = cuda_corr.corr_fwd.bf16_launches
+    out, sim, l = cuda_corr.corr_fwd(theta, phi, values, temperature,
+                                     emit_l=True)
+    want_out, want_sim, want_l = cuda_corr.corr_fwd(
+        theta.float(), phi.float(), values.float(), temperature, emit_l=True)
+    torch.cuda.synchronize()
+    assert cuda_corr.corr_fwd.bf16_launches == before + 1
+    assert out.dtype == torch.bfloat16 and sim.dtype == l.dtype == torch.float32
+    assert torch.equal(out, want_out.bfloat16())
+    assert torch.equal(sim, want_sim) and torch.equal(l, want_l)
+    plain_out, plain_sim = correspondence_warp_einsum(theta, phi, values,
+                                                      temperature)
+    assert plain_out.dtype == torch.bfloat16
+    torch.testing.assert_close(sim, plain_sim, rtol=0, atol=1e-5)
+    row_err = (out.float() - plain_out.float()).abs().amax(dim=-1)
+    if temperature == 0.01:
+        assert row_err.max().item() <= 0.5 + 1e-3
+    else:
+        assert (row_err > 0.5 + 1e-3).float().mean().item() <= 3e-3
+
+
+def test_corr_fwd_bf16_refuses_mixed_dtypes_and_grad(cuda):
+    theta, phi, values = _corr_inputs(1, 64, 64, 256, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        cuda_corr.corr_fwd(theta.bfloat16(), phi, values, 0.01)
+    with pytest.raises(TypeError, match="bfloat16"):
+        cuda_corr.corr_fwd(theta.bfloat16(), phi.bfloat16(), values, 0.01)
+    with pytest.raises(TypeError, match="fp32 only"):
+        cuda_corr.CorrFunction.apply(theta.bfloat16(), phi.bfloat16(),
+                                     values.bfloat16(), 0.01)
+
+
 def _systems(length, n_sys, device, seed=0):
     rng = np.random.RandomState(seed)
     a = rng.rand(n_sys, length).astype(np.float32) * 0.45
@@ -426,13 +473,13 @@ def test_smooth_pass_batched_matches_plain(cuda, hw, axis, b, shared):
         assert torch.equal(x[i], alone), i
 
 
-def _models(device):
+def _models(device, dtype=None):
     from devc_tpu_torch.pipeline.frame import PipelineModels
     from devc_tpu_torch.utils.convert import state_dicts_from_numpy
     from devc_tpu_torch.utils.init import host_pipeline_params
 
     return PipelineModels.from_state_dicts(
-        state_dicts_from_numpy(host_pipeline_params(0)), device)
+        state_dicts_from_numpy(host_pipeline_params(0)), device, dtype)
 
 
 def _textured(seed, n, hw):
@@ -476,6 +523,37 @@ def test_scan_replays_equal_stream(cuda, multi, monkeypatch):
             video.colorize_frames(models, frames, refs[0],
                                   lambda i, a: got.append(a), mode=mode,
                                   chunk=2)
+        outs[mode] = got
+    assert len(outs["scan"]) == len(outs["stream"]) == 5
+    for a, b in zip(outs["stream"], outs["scan"]):
+        assert np.array_equal(a, b)
+    (runner,) = runners
+    assert runner.replays == 5
+    assert runner.kernel_launches == {"corr_fwd": 1, "smooth_pass": 6,
+                                      "tridiag_pcr": 0}
+
+
+def test_bf16_scan_replays_equal_stream(cuda, monkeypatch):
+    """--bf16 (bf16 models, compute_dtype bf16): scan mode gives stream
+    mode's frames bit for bit (chunk 2 over 5 frames); each replay
+    launches K1's bf16 variant once."""
+    from devc_tpu_torch.pipeline import graph, video
+
+    models = _models(cuda, torch.bfloat16)
+    ref, *frames = _textured(6, 6, (64, 128))
+    runners = []
+
+    def capture(*args):
+        runners.append(graph.CapturedStep(*args))
+        return runners[-1]
+
+    monkeypatch.setattr(video, "CapturedStep", capture)
+    outs = {}
+    for mode in ("stream", "scan"):
+        got = []
+        video.colorize_frames(models, frames, ref,
+                              lambda i, a: got.append(a), mode=mode,
+                              chunk=2, compute_dtype=torch.bfloat16)
         outs[mode] = got
     assert len(outs["scan"]) == len(outs["stream"]) == 5
     for a, b in zip(outs["stream"], outs["scan"]):

@@ -248,7 +248,8 @@ def test_port_imports_no_jax():
             "devc_tpu_torch.data.native, devc_tpu_torch.data.flow, "
             "devc_tpu_torch.data.distortion, devc_tpu_torch.data.videoloader, "
             "devc_tpu_torch.utils.logging, devc_tpu_torch.utils.profiling, "
-            "devc_tpu_torch.models.vgg19_gray, devc_tpu_torch.train.state; "
+            "devc_tpu_torch.models.vgg19_gray, devc_tpu_torch.train.state, "
+            "devc_tpu_torch.utils.metrics, devc_tpu_torch.cli.evaluate; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'devc_tpu')); "
             "assert not bad, bad")
