@@ -38,13 +38,14 @@ line {"ok": true, "device": {...}}:
   7. layers    one frame's stages timed one by one with CUDA events.
   8. cli       python -m devc_tpu_torch.cli.colorize on the frames written
                as PNGs, when Pillow is installed (else says it skipped).
-  9. bf16      the bf16 mode (cli.colorize --bf16): K1's bf16 variant at
-               B = 1, N = 5184 and 20736 (T = 1e-10) bit-equal to the fp32
-               kernel on the upcast inputs and against its plain version,
-               with ms, the bf16 bound and SDPA on the bf16 inputs;
+  9. bf16      the bf16 mode (cli.colorize --bf16): K1's bf16 kernel
+               (scores on the tensor cores) at B = 1, N = 5184 and 20736
+               against its plain version at T = 0.01, 1 and 1e-10, a
+               second call bit-equal, an exact tie averaged exactly, with
+               ms, the bf16 bound and SDPA on the bf16 inputs;
                frame_step in bf16 on the card against the CPU's bf16 path
                (64x128, teacher-forced); the main path in bf16 on the 8
-               frames (launches: K1's bf16 variant 8, K2 48), scan
+               frames (launches: K1's bf16 kernel 8, K2 48), scan
                bit-equal to stream; ms a frame of fp32 and bf16 at
                432x768 (stream, scan) and 864x1536 (stream); the stages
                in bf16; cli.colorize with and without --bf16 and
@@ -1835,8 +1836,9 @@ def phase_cli_train(frames, ref, seed: int, card: str):
     defaults (batch 16, 216x384, float batches, --workers 8), then a
     2-step --device_preprocess run, --resume (bit-equal restore of step
     30, steps 31-32) and its VGG-mismatch refusal, cli.export and
-    cli.colorize --train_ckpt on 8 frames at 432x768. Returns the launch
-    counts of the training run and of the colorize run."""
+    cli.colorize --train_ckpt on 8 frames at 432x768, with and without
+    --bf16. Returns the launch counts of the training run and of the two
+    colorize runs (fp32, bf16)."""
     import numpy as np
     import torch
     from PIL import Image
@@ -2027,7 +2029,7 @@ def phase_cli_train(frames, ref, seed: int, card: str):
         assert psnr > 30.0, psnr
         del models
         # cli.colorize --train_ckpt --bf16 on the same checkpoint: K1's
-        # bf16 variant once a frame; its frames against the fp32 run's
+        # bf16 kernel once a frame; its frames against the fp32 run's
         from devc_tpu_torch.ops import cuda_corr
         from devc_tpu_torch.utils.metrics import psnr as psnr_on
 
@@ -2056,7 +2058,7 @@ def phase_cli_train(frames, ref, seed: int, card: str):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches, col_launches
+    return launches, col_launches, bf16_launches
 
 
 def sdpa_bf16_ms(theta, phi, values, temperature):
@@ -2102,48 +2104,81 @@ def k1_bf16_bound(b: int, n: int, c: int = 256) -> dict:
 
 
 def _k1_bf16_cases(rng, dev):
-    """K1's bf16 variant at B = 1, N = 5184 and 20736, T = 1e-10: bit-equal
-    to the fp32 kernel on the upcast inputs (out rounded to bf16), against
-    the plain bf16 version, ms of both, of the fp32 kernel on the upcast
-    inputs and of SDPA on the bf16 inputs, with the bf16 bound."""
+    """K1's bf16 kernel (csrc/corr_fwd_bf16.cu, scores on the tensor cores)
+    at B = 1, N = 5184 and 20736 against the plain version on the same
+    bf16 inputs, at T = 0.01, 1 and 1e-10: sim within 1e-5; l within 1e-5
+    relative of the plain version in float64 (the fp32 plain version
+    carries its own round-off, which 1 / T amplifies at T = 0.01); out,
+    after its bf16 rounding, within one bf16 ulp of |out| <= 100 (0.5,
+    plus 1e-3) on every row at T = 0.01 and 1, and at T = 1e-10 on all
+    but at most 1e-3 of rows (near-tie flips: two best scores closer than
+    the summation-order round-off). A second call bit-equal to the first; a
+    duplicated key averaged exactly. Then ms of the kernel, of the fp32
+    kernel on the upcast inputs, of the plain version and of SDPA on the
+    bf16 inputs, with the bf16 bound."""
     import torch
 
-    from devc_tpu_torch.ops.correspondence import correspondence_warp_einsum
+    from devc_tpu_torch.ops.correspondence import (
+        correspondence_fwd_plain,
+        correspondence_warp_einsum,
+    )
     from devc_tpu_torch.ops.cuda_corr import corr_fwd
 
     rows = []
     for n in K1_SIZES:
         theta, phi, values = (x.bfloat16() for x in
                               _k1_inputs(rng, 1, n, dev))
-        up = [x.float() for x in (theta, phi, values)]
+        case = {"kernel": "corr_fwd_bf16", "dtype": "bfloat16", "b": 1,
+                "n": n, "c": 256, "sim_max_abs_err": 0.0,
+                "out_max_abs_err_unflipped": 0.0, "l_max_rel_err": 0.0,
+                "run_to_run_bit_equal": True}
+        for t in (0.01, 1.0, 1e-10):
+            before = corr_fwd.bf16_launches
+            out, sim, l = corr_fwd(theta, phi, values, t, emit_l=True)
+            again = corr_fwd(theta, phi, values, t, emit_l=True)
+            want_out, want_sim = correspondence_warp_einsum(theta, phi,
+                                                            values, t)
+            _, _, want_l = correspondence_fwd_plain(
+                theta.double(), phi.double(), values.double(), t)
+            torch.cuda.synchronize()
+            assert corr_fwd.bf16_launches == before + 2
+            equal = all(torch.equal(x, y) for x, y in zip((out, sim, l),
+                                                          again))
+            sim_err = (sim - want_sim).abs().max().item()
+            row_err = (out.float() - want_out.float()).abs().amax(dim=-1)
+            ok = row_err <= 0.5 + 1e-3
+            l_rel = ((l.double() - want_l).abs() / want_l)[ok[..., None]]
+            at_t = {"temperature": t, "sim_max_abs_err": sim_err,
+                    "out_max_abs_err_unflipped": row_err[ok].max().item(),
+                    "rows_differing": 1.0 - ok.float().mean().item(),
+                    "l_max_rel_err": l_rel.max().item(),
+                    "run_to_run_bit_equal": equal}
+            emit("bf16", kernel="corr_fwd_bf16", n=n, **at_t)
+            assert equal, at_t
+            assert sim_err <= 1e-5 and at_t["l_max_rel_err"] <= 1e-5, at_t
+            assert at_t["rows_differing"] <= (1e-3 if t == 1e-10 else 0), at_t
+            for k in ("sim_max_abs_err", "out_max_abs_err_unflipped",
+                      "l_max_rel_err"):
+                case[k] = max(case[k], at_t[k])
+            case[f"rows_differing_t{t:g}"] = at_t["rows_differing"]
+            del out, sim, l, again, want_out, want_sim, want_l, row_err
+            torch.cuda.empty_cache()
+        # an exact tie at the row max: key 5 duplicated at n - 100 (other
+        # key tiles, another key range), out the exact bf16 mean, l = 2
+        tied = phi.clone()
+        tied[0, 5] = tied[0, n - 100] = theta[0, 0]
+        out, _, l = corr_fwd(theta, tied, values, 1e-10, emit_l=True)
+        mean = ((values[0, 5].float() + values[0, n - 100].float())
+                / 2).bfloat16()
+        case["exact_tie_mean"] = bool(torch.equal(out[0, 0], mean)
+                                      and l[0, 0, 0].item() == 2.0)
+        assert case["exact_tie_mean"], (out[0, 0], mean, l[0, 0, 0])
+        del tied, out, l
         t = 1e-10
-        before = corr_fwd.bf16_launches
-        out, sim, l = corr_fwd(theta, phi, values, t, emit_l=True)
-        out32, sim32, l32 = corr_fwd(*up, t, emit_l=True)
-        want_out, want_sim = correspondence_warp_einsum(theta, phi, values, t)
-        torch.cuda.synchronize()
-        assert corr_fwd.bf16_launches == before + 1
-        bit_equal = bool(torch.equal(out, out32.bfloat16())
-                         and torch.equal(sim, sim32) and torch.equal(l, l32))
-        sim_err = (sim - want_sim).abs().max().item()
-        row_err = (out.float() - want_out.float()).abs().amax(dim=-1)
-        # a row whose two best scores are closer than the summation-order
-        # round-off may pick another key (near-tie flip); every other row
-        # is the same bf16 value, up to one bf16 ulp of |out| <= 100 (0.5)
-        ok = row_err <= 0.5 + 1e-3
-        case = {"kernel": "corr_fwd", "dtype": "bfloat16", "b": 1, "n": n,
-                "c": 256, "temperature": t,
-                "bit_equal_to_fp32_kernel_on_upcast": bit_equal,
-                "sim_max_abs_err": sim_err,
-                "out_max_abs_err_unflipped": row_err[ok].max().item(),
-                "rows_differing": 1.0 - ok.float().mean().item()}
-        emit("bf16", **case)
-        assert bit_equal, case
-        assert sim_err <= 1e-5 and case["rows_differing"] <= 1e-3, case
-        del out, sim, l, out32, sim32, l32, want_out, want_sim
-        torch.cuda.empty_cache()
+        case["temperature"] = t
         case["ms"] = cuda_ms(lambda: corr_fwd(theta, phi, values, t),
                              queued=True)
+        up = [x.float() for x in (theta, phi, values)]
         case["fp32_kernel_on_upcast_ms"] = cuda_ms(
             lambda: corr_fwd(*up, t), queued=True)
         case["plain_ms"] = cuda_ms(lambda: correspondence_warp_einsum(
@@ -2349,9 +2384,9 @@ def _bf16_cli(frames, ref, seed: int, card: str):
 
 
 def phase_bf16(sds, frames, ref, seed: int, card: str):
-    """The bf16 mode (cli.colorize --bf16) on the card: K1's bf16 variant
-    (bit-equal to the fp32 kernel on the upcast inputs, against its plain
-    version, ms, bound, SDPA); frame_step against the CPU's bf16 path;
+    """The bf16 mode (cli.colorize --bf16) on the card: K1's bf16 kernel
+    (against its plain version, a rerun, an exact tie, ms, bound, SDPA);
+    frame_step against the CPU's bf16 path;
     the main path (colorize_frames, bf16 models, compute_dtype bf16) on the
     8 frames at 432x768 with its launches (read right after it ran, the
     counts at 0 before), scan bit-equal to stream; ms a frame of fp32 and
@@ -2431,7 +2466,7 @@ def phase_bf16(sds, frames, ref, seed: int, card: str):
     _bf16_cli(frames, ref, seed, card)
     _bf16_quality(sds, frames, ref, f"random (host_pipeline_params({seed}))",
                   card)
-    return k1_rows, dict(launches), layers
+    return k1_rows, dict(launches, corr_fwd_bf16=bf16_k1), layers
 
 
 def _clone_to_cpu(tree):
@@ -2497,10 +2532,10 @@ def main(argv=None) -> int:
          allocated_mib_without_cublas_workspaces=allocated_mib())
     phase_train_parity(args.seed)
     train = phase_train(args.seed, card)
-    cli_train, cli_colorize = phase_cli_train(frames, ref, args.seed, card)
+    cli_train, cli_colorize, cli_colorize_bf16 = phase_cli_train(
+        frames, ref, args.seed, card)
 
-    # the serving path's shapes beside each kernel's own; K1's bf16 variant
-    # at its inference shapes
+    # the serving path's shapes beside each kernel's own
     pick = ("b", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     for row in k1["by_shape"]:
         row["dtype"] = "float32"
@@ -2509,17 +2544,20 @@ def main(argv=None) -> int:
                             library_ms=c["library_ms"], path="serve",
                             dtype="float32")
                        for c in k1_serve]
-    k1["by_shape"] += [dict(
+    k1["max_abs_err"] = max([k1["max_abs_err"]]
+                            + [c["max_abs_err"] for c in k1_serve])
+    # K1's bf16 kernel at its inference shapes, N = 5184 first
+    k1_bf16_rows = [dict(
         {k: c[k] for k in ("b", "n", "c", "temperature", "ms", "plain_ms",
                            "bound_ms", "bound_by", "library_ms",
                            "library_call", "library_value_width",
                            "fp32_kernel_on_upcast_ms", "exponentials",
-                           "bit_equal_to_fp32_kernel_on_upcast")},
+                           "l_max_rel_err", "run_to_run_bit_equal",
+                           "exact_tie_mean")},
         max_abs_err=max(c["sim_max_abs_err"], c["out_max_abs_err_unflipped"]),
         dtype="bfloat16", path="bf16") for c in k1_bf16]
-    k1["max_abs_err"] = max([k1["max_abs_err"]]
-                            + [c["max_abs_err"] for c in k1_serve]
-                            + [c["sim_max_abs_err"] for c in k1_bf16])
+    k1_16 = dict(k1_bf16_rows[0], by_shape=k1_bf16_rows,
+                 max_abs_err=max(r["max_abs_err"] for r in k1_bf16_rows))
     smooth = k2["entries"][0]
     smooth["by_shape"] += [dict({k: c[k] for k in pick}, h=c["h"], w=c["w"],
                                 axis=c["axis"], guide=c["guide"],
@@ -2529,17 +2567,26 @@ def main(argv=None) -> int:
     # launches: each driven path's count, read right after that path ran
     # with the counts at 0 (inference main path, the bf16 mode's main path,
     # the batched serving scheduler, the training step, cli.train's 30
-    # steps, cli.colorize --train_ckpt on its checkpoint)
-    by_path = lambda name: {"main": launches.get(name, 0),
-                            "bf16": bf16_launches.get(name, 0),
-                            "serve": serve.get(name, 0),
-                            "train": train.get(name, 0),
-                            "cli_train": cli_train.get(name, 0),
-                            "cli_train_colorize": cli_colorize.get(name, 0)}
+    # steps, cli.colorize --train_ckpt on its checkpoint without and with
+    # --bf16). corr_fwd's wrapper counts both of K1's kernels; its bf16
+    # launches are the bf16 kernel's, the rest the fp32 kernel's.
+    paths = {"main": launches, "bf16": bf16_launches, "serve": serve,
+             "train": train, "cli_train": cli_train,
+             "cli_train_colorize": cli_colorize,
+             "cli_train_colorize_bf16": cli_colorize_bf16}
+
+    def count(counts, name):
+        if name == "corr_fwd":
+            return counts.get(name, 0) - counts.get("corr_fwd_bf16", 0)
+        return counts.get(name, 0)
+
+    by_path = lambda name: {p: count(c, name) for p, c in paths.items()}
     for entry in k2["entries"]:  # K2's two entries, each with its counts
         entry["launches_by_path"] = by_path(entry["name"])
         entry["launches"] = sum(entry["launches_by_path"].values())
     rows = [("corr_fwd", "corr_fwd.cu", "devc_tpu/ops/pallas_corr.py:80", k1),
+            ("corr_fwd_bf16", "corr_fwd_bf16.cu",
+             "devc_tpu/ops/pallas_corr.py:80", k1_16),
             ("smooth_pass", "tridiag_pcr.cu", "devc_tpu/ops/fgs.py:68", k2),
             ("corr_bwd_dq", "corr_bwd.cu", "devc_tpu/ops/pallas_corr.py:218",
              bwd["corr_bwd_dq"]),

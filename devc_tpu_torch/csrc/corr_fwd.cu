@@ -35,28 +35,17 @@
 //     are split across `splits` blocks per query tile (the wrapper picks
 //     the count that wastes the least of the last wave), and a second
 //     kernel merges the partial (m, l, acc) exactly (the combine of the
-//     keys-sharded path, devc_tpu/parallel/sharded_corr.py). P.V has
-//     V = 3: three FMAs per score.
-// When the query tile no longer fits beside the ring (C > 288 in fp32),
-// each stage carries the matching 64-channel chunk of the queries as
+//     keys-sharded path, devc_tpu/parallel/sharded_corr.py; shared with
+//     the bf16 kernel in corr_combine.cuh). P.V has V = 3: three FMAs
+//     per score.
+// For C > RESIDENT_MAX_C the query tile no longer fits beside the ring;
+// then each stage carries the matching 64-channel chunk of the queries as
 // well (the same loop, reading the queries from the stage). C % 64 == 32
 // leaves a last chunk of 32 channels, computed as one half of a stage.
 //
-// bf16 embeddings (devc_tpu's --bf16 mode; the Pallas kernel multiplies
-// bf16 x bf16 with fp32 accumulation, pallas_corr.py::_scores): the same
-// kernel, templated on the element type T of theta and phi. The tiles are
-// staged as bf16 (half the bytes in the ring and the resident tile, rows
-// padded by 16 bytes as in fp32) and each element is widened to fp32
-// (`__bfloat1622float2`, exact) as the score loop reads it; the scores go
-// through corr_score_step in the same channel order. A product of two
-// bf16 values is exact in fp32, so this variant computes the very bits of
-// the fp32 kernel run on the upcast inputs; out is rounded to bf16 (RNE)
-// as it is stored (the Pallas kernel's out_shape is theta's dtype), sim,
-// l and the split partials stay fp32. The values stay fp32: a bf16 row is
-// 6 bytes, which cp.async's 4-byte copies cannot take on odd rows, so the
-// wrapper upcasts them (B N 3 elements, exact). The widening costs ALU
-// slots beside the FMAs (about one instruction per 4 FMAs); putting bf16
-// scores on the tensor cores is a later redesign.
+// This kernel takes fp32 embeddings only. bf16 embeddings (the --bf16
+// mode) run corr_fwd_bf16.cu, which forms its scores on the bf16 tensor
+// cores.
 //
 // Exactness at T -> 0: (s - m) * inv_t is formed in fp32 and fed to expf
 // (no fast math, no exp2 pre-scaling); l and acc are rescaled by
@@ -76,11 +65,10 @@
 // backward kernels recompute the same bits and their s == m test finds
 // the row max.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <string.h>
 
+#include "corr_combine.cuh"
 #include "corr_common.cuh"
 
 namespace {
@@ -93,52 +81,20 @@ constexpr int STAGES = 2;     // ring depth: one stage in flight
 constexpr int THREADS = 256;  // 16 (rows) x 16 (keys) lanes
 constexpr int QI = TQ / 16;   // a thread's rows: ty + 16 i, i < QI
 constexpr int KJ = TK / 16;   // a thread's keys: tx + 16 j, j < KJ
-constexpr int V = 3;
-constexpr int PART = 2 + V;   // a partial result: m, l, acc[3]
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of one block
+constexpr int LD = CK + 4;    // padded row stride of a staged chunk
+constexpr int V = devc::kCorrV;
+constexpr int PART = devc::kCorrPart;  // a partial result: m, l, acc[3]
+constexpr int RESIDENT_MAX_C = 288;  // the largest C whose query tile fits
 // expf(x) is exactly 0 in fp32 for x below about -103.97; a margin below
 constexpr float kUnderflow = -120.f;
 
-// Elements of T in a 16-byte copy; a staged row is padded by that much
-template <typename T>
-__host__ __device__ constexpr int pad_of() { return 16 / (int)sizeof(T); }
-
-// padded row stride (elements) of a staged 64-channel chunk
-template <typename T>
-__host__ __device__ constexpr int ld_of() { return CK + pad_of<T>(); }
-
-// elements of T in the query tile: resident [TQ][c + pad], or a ring
-template <typename T>
-__host__ __device__ constexpr int q_elems(bool resident, int c) {
-  return resident ? TQ * (c + pad_of<T>()) : STAGES * TQ * ld_of<T>();
+__host__ __device__ constexpr int q_floats(bool resident, int c) {
+  return resident ? TQ * (c + 4) : STAGES * TQ * LD;
 }
 
-template <typename T>
 size_t smem_bytes(bool resident, int c) {
-  return sizeof(T) * ((size_t)q_elems<T>(resident, c) +
-                      STAGES * TK * ld_of<T>()) +
-         sizeof(float) * STAGES * TK * V;
-}
-
-// Four consecutive channels, widened to fp32 (exact for bf16).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);  // 8 bytes
-  __nv_bfloat162 lo, hi;
-  memcpy(&lo, &u.x, sizeof(lo));
-  memcpy(&hi, &u.y, sizeof(hi));
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+  return sizeof(float) *
+         ((size_t)q_floats(resident, c) + STAGES * TK * LD + STAGES * TK * V);
 }
 
 __device__ __forceinline__ float group16_max(float x) {
@@ -155,7 +111,7 @@ __device__ __forceinline__ float group16_sum(float x) {
 
 // cp.async of 16 (or 4) bytes; src_bytes < size zero-fills the rest (0:
 // nothing is read, src only has to be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            int src_bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
@@ -181,19 +137,17 @@ __device__ __forceinline__ void cp_async_wait() {
 // Copy rows [r0, r0 + rows) x channels [c0, c0 + width) of a row-major
 // [n, c] matrix into dst[rows][ld], dst[0][0] holding channel c0; rows
 // past n are zero. width is a multiple of CH.
-template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src,
                                            int r0, int rows, int n, int c,
                                            int c0, int width) {
-  constexpr int E = pad_of<T>();  // elements of one 16-byte copy
-  constexpr int WP = CH / E;      // copies of a row's CH channels
+  constexpr int W4 = CH / 4;  // 16-byte pieces of a row's CH channels
   for (int h = 0; h < width; h += CH) {
-    for (int i = threadIdx.x; i < rows * WP; i += THREADS) {
-      const int r = i / WP;
-      const int p = i % WP;
+    for (int i = threadIdx.x; i < rows * W4; i += THREADS) {
+      const int r = i / W4;
+      const int c4 = i % W4;
       const bool in = r0 + r < n;
-      cp_async16(dst + r * ld + h + E * p,
-                 in ? src + (size_t)(r0 + r) * c + c0 + h + E * p : src,
+      cp_async16(dst + r * ld + h + 4 * c4,
+                 in ? src + (size_t)(r0 + r) * c + c0 + h + 4 * c4 : src,
                  in ? 16 : 0);
     }
   }
@@ -202,27 +156,25 @@ __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
 // One block: TQ query rows against the key tiles of one split. With
 // part == nullptr (one split) it writes out / sim / l_out; otherwise it
 // writes its partial (m, l, acc) to part[split][b][q][PART].
-template <typename T, bool kResident>
+template <bool kResident>
 __global__ void __launch_bounds__(THREADS, 1)
-corr_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
-                const float* __restrict__ values, T* __restrict__ out,
+corr_fwd_kernel(const float* __restrict__ theta, const float* __restrict__ phi,
+                const float* __restrict__ values, float* __restrict__ out,
                 float* __restrict__ sim, float* __restrict__ l_out,
                 float* __restrict__ part, int nq, int nk, int c,
                 int tiles_per_split, float inv_t) {
-  constexpr int LD = ld_of<T>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* q_s = reinterpret_cast<T*>(smem_raw);  // resident [TQ][c + pad], or
-                                            // [STAGES][TQ][LD]
-  T* k_s = q_s + q_elems<T>(kResident, c);  // [STAGES][TK][LD]
-  // [STAGES][TK][V]; the offset is a multiple of 16 bytes
-  float* v_s = reinterpret_cast<float*>(k_s + STAGES * TK * LD);
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                          // resident [TQ][c + 4], or
+                                              // [STAGES][TQ][LD]
+  float* k_s = smem + q_floats(kResident, c);  // [STAGES][TK][LD]
+  float* v_s = k_s + STAGES * TK * LD;        // [STAGES][TK][V]
 
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * TQ;
   const int k_begin = blockIdx.y * tiles_per_split * TK;
   const int k_end = min(nk, k_begin + tiles_per_split * TK);
-  const T* th_g = theta + (size_t)b * nq * c;
-  const T* ph_g = phi + (size_t)b * nk * c;
+  const float* th_g = theta + (size_t)b * nq * c;
+  const float* ph_g = phi + (size_t)b * nk * c;
   const float* v_g = values + (size_t)b * nk * V;
 
   const int ty = threadIdx.x / 16;  // rows ty + 16 i
@@ -255,7 +207,7 @@ corr_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
     cp_async_commit();
   };
 
-  if (kResident) stage_rows(q_s, c + pad_of<T>(), th_g, q0, TQ, nq, c, 0, c);
+  if (kResident) stage_rows(q_s, c + 4, th_g, q0, TQ, nq, c, 0, c);
   // the query tile's copies join chunk 0's group
 #pragma unroll
   for (int g = 0; g < STAGES - 1; ++g) fill_stage(g);
@@ -278,9 +230,9 @@ corr_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
     const int slot = g % STAGES;
     const int ch = g % cpt;
     const int cw = min(CK, c - ch * CK);
-    const T* qb = kResident ? q_s + ch * CK : q_s + slot * TQ * LD;
-    const int q_ld = kResident ? c + pad_of<T>() : LD;
-    const T* kb = k_s + slot * TK * LD;
+    const float* qb = kResident ? q_s + ch * CK : q_s + slot * TQ * LD;
+    const int q_ld = kResident ? c + 4 : LD;
+    const float* kb = k_s + slot * TK * LD;
 #pragma unroll
     for (int h = 0; h < CK; h += CH) {
       if (h >= cw) break;  // a last chunk of CH channels
@@ -288,10 +240,12 @@ corr_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
       for (int cc = h; cc < h + CH; cc += 4) {
         float4 kv[KJ];
 #pragma unroll
-        for (int j = 0; j < KJ; ++j) kv[j] = load4(kb + (tx + 16 * j) * LD + cc);
+        for (int j = 0; j < KJ; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(kb + (tx + 16 * j) * LD + cc);
 #pragma unroll
         for (int i = 0; i < QI; ++i) {
-          const float4 qv = load4(qb + (ty + 16 * i) * q_ld + cc);
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qb + (ty + 16 * i) * q_ld + cc);
 #pragma unroll
           for (int j = 0; j < KJ; ++j) {
             float x = s[i][j];
@@ -362,7 +316,7 @@ corr_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
     const size_t o = (size_t)b * nq + q;
     if (part == nullptr) {
 #pragma unroll
-      for (int v = 0; v < V; ++v) store_out(out + o * V + v, ai[v] / li);
+      for (int v = 0; v < V; ++v) out[o * V + v] = ai[v] / li;
       sim[o] = m[i];
       if (l_out != nullptr) l_out[o] = li;
     } else {
@@ -373,62 +327,6 @@ corr_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
       for (int v = 0; v < V; ++v) p[2 + v] = ai[v];
     }
   }
-}
-
-// Merge the partials of `splits` key ranges into out / sim / l_out.
-template <typename T>
-__global__ void corr_combine_kernel(const float* __restrict__ part,
-                                    T* __restrict__ out,
-                                    float* __restrict__ sim,
-                                    float* __restrict__ l_out, int rows,
-                                    int splits, float inv_t) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  float m = -INFINITY;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, part[((size_t)s * rows + r) * PART]);
-  float l = 0.f, acc[V] = {0.f, 0.f, 0.f};
-  for (int s = 0; s < splits; ++s) {
-    const float* p = part + ((size_t)s * rows + r) * PART;
-    const float w = expf((p[0] - m) * inv_t);  // every split's m is finite
-    l = fmaf(w, p[1], l);
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[v] = fmaf(w, p[2 + v], acc[v]);
-  }
-#pragma unroll
-  for (int v = 0; v < V; ++v) store_out(out + (size_t)r * V + v, acc[v] / l);
-  sim[r] = m;
-  if (l_out != nullptr) l_out[r] = l;
-}
-
-template <typename T>
-int launch_corr_fwd(const void* theta, const void* phi, const void* values,
-                    void* out, void* sim, void* l_out, void* part, int batch,
-                    int nq, int nk, int c, int splits, float inv_t,
-                    void* stream) {
-  const int tiles = (nk + TK - 1) / TK;
-  const int tiles_per_split = (tiles + splits - 1) / splits;
-  splits = (tiles + tiles_per_split - 1) / tiles_per_split;  // none empty
-  const dim3 grid((nq + TQ - 1) / TQ, splits, batch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* part_f = splits > 1 ? static_cast<float*>(part) : nullptr;
-  const bool resident = smem_bytes<T>(true, c) <= kMaxSmem;
-  const size_t smem = smem_bytes<T>(resident, c);
-  auto kernel = resident ? corr_fwd_kernel<T, true> : corr_fwd_kernel<T, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(theta), static_cast<const T*>(phi),
-      static_cast<const float*>(values), static_cast<T*>(out),
-      static_cast<float*>(sim), static_cast<float*>(l_out), part_f, nq, nk, c,
-      tiles_per_split, inv_t);
-  if (splits > 1) {
-    const int rows = batch * nq;
-    corr_combine_kernel<T><<<(rows + 255) / 256, 256, 0, st>>>(
-        part_f, static_cast<T*>(out), static_cast<float*>(sim),
-        static_cast<float*>(l_out), rows, splits, inv_t);
-  }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -443,18 +341,28 @@ extern "C" int devc_corr_fwd(const void* theta, const void* phi,
                              void* l_out, void* part, int batch, int nq,
                              int nk, int c, int splits, float inv_t,
                              void* stream) {
-  return launch_corr_fwd<float>(theta, phi, values, out, sim, l_out, part,
-                                batch, nq, nk, c, splits, inv_t, stream);
-}
-
-// The same with theta and phi in bf16 and out written in bf16 (values,
-// sim, l and part fp32).
-extern "C" int devc_corr_fwd_bf16(const void* theta, const void* phi,
-                                  const void* values, void* out, void* sim,
-                                  void* l_out, void* part, int batch, int nq,
-                                  int nk, int c, int splits, float inv_t,
-                                  void* stream) {
-  return launch_corr_fwd<__nv_bfloat16>(theta, phi, values, out, sim, l_out,
-                                        part, batch, nq, nk, c, splits, inv_t,
-                                        stream);
+  const int tiles = (nk + TK - 1) / TK;
+  const int tiles_per_split = (tiles + splits - 1) / splits;
+  splits = (tiles + tiles_per_split - 1) / tiles_per_split;  // none empty
+  const dim3 grid((nq + TQ - 1) / TQ, splits, batch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part_f = splits > 1 ? static_cast<float*>(part) : nullptr;
+  const bool resident = c <= RESIDENT_MAX_C;
+  const size_t smem = smem_bytes(resident, c);
+  auto kernel = resident ? corr_fwd_kernel<true> : corr_fwd_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, THREADS, smem, st>>>(
+      static_cast<const float*>(theta), static_cast<const float*>(phi),
+      static_cast<const float*>(values), static_cast<float*>(out),
+      static_cast<float*>(sim), static_cast<float*>(l_out), part_f, nq, nk, c,
+      tiles_per_split, inv_t);
+  if (splits > 1) {
+    const int rows = batch * nq;
+    devc::corr_combine_kernel<float><<<(rows + 255) / 256, 256, 0, st>>>(
+        part_f, static_cast<float*>(out), static_cast<float*>(sim),
+        static_cast<float*>(l_out), rows, splits, inv_t);
+  }
+  return (int)cudaGetLastError();
 }

@@ -29,7 +29,10 @@ exp((s - m) / T) is exactly 1 at a tie and 0 elsewhere.
 bf16 embeddings (the --bf16 mode) are widened to fp32 for the scores, the
 softmax and the warp, and `out` comes back in bf16, `sim` in fp32: the
 dtypes of devc_tpu's Pallas kernel, whose bf16 products are exact in its
-fp32 accumulation. On the card they run K1's bf16 variant.
+fp32 accumulation. On the card they run K1's bf16 kernel
+(`csrc/corr_fwd_bf16.cu`), which sums those products on the tensor cores
+in another order: it agrees with this plain version to the fp32 kernel's
+tolerances, not bit for bit.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Wrappers for the correspondence kernels and their autograd Function.
 
-  * `corr_fwd`: K1 (`csrc/corr_fwd.cu`), replaces devc_tpu/ops/
-    pallas_corr.py::_corr_fwd_kernel, for fp32 or bf16 embeddings (the
-    --bf16 mode; out in bf16, bit-equal to the fp32 kernel on the upcast
-    inputs with out rounded). Plain version:
+  * `corr_fwd`: K1, replaces devc_tpu/ops/pallas_corr.py::_corr_fwd_kernel:
+    fp32 embeddings run `csrc/corr_fwd.cu` (fp32 FMA scores in the order
+    the backward reproduces), bf16 embeddings (the --bf16 mode; out in
+    bf16) `csrc/corr_fwd_bf16.cu` (scores on the bf16 tensor cores with
+    fp32 accumulation, launched as `bf16_plan` lays it out). Plain version:
     `correspondence.correspondence_warp_einsum` (and, emitting l,
     `correspondence.correspondence_fwd_plain`).
   * `corr_bwd_dkv`, `corr_bwd_dq`: K3 and K2b (`csrc/corr_bwd.cu`), replace
@@ -28,6 +29,9 @@ returning them would cut the gradient silently. The backward, and so
 
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass
+
 import torch
 
 from devc_tpu_torch.ops.correspondence import (
@@ -36,28 +40,98 @@ from devc_tpu_torch.ops.correspondence import (
 )
 from devc_tpu_torch.utils.build import check, load_kernels
 
-_TQ, _TK = 128, 128  # K1's query rows per block and keys per tile
+_TQ, _TK = 128, 128  # the fp32 K1's query rows per block, keys per tile
 _TB = 128  # the backward's tile, both sides; the df scratch is padded to it
 SCRATCH_BUDGET = 2 << 30  # bytes of df scratch the backward may hold at once
 _MAX_SPLITS = 8  # K1 reloads its query tile once per key range
 
+# K1's bf16 kernel (csrc/corr_fwd_bf16.cu), mirrored so that its launch
+# plan is a pure function the CPU tests reach: 256 query rows (four
+# warpgroups) and 128 keys a tile; shared tiles of [rows][64 channels]
+# bf16 ("atoms" of 128-byte rows, 1024-byte aligned), a 3-stage ring of
+# key atoms with a key tile's values (fp32, 16-byte rows) and an 8-byte
+# mbarrier per stage, and one mbarrier for the query tile. The kernel keeps
+# the query tile resident whenever that form fits a block's shared memory,
+# and runs one block an SM (more than half an SM's shared memory at every
+# width).
+BF16_TQ, BF16_TK, BF16_CK, BF16_STAGES = 256, 128, 64, 3
+BF16_ALIGN, BF16_VW = 1024, 4
+MAX_BLOCK_SMEM = 232448  # dynamic shared memory of one block (H100)
 
-def _key_splits(b: int, nq: int, nk: int, device) -> int:
-    """Key ranges per query tile for K1, which runs one block per SM: the
-    count (at most _MAX_SPLITS) whose waves of blocks take the fewest key
-    tiles per SM, the smaller on a tie (few query tiles at N = 5184 leave
-    most SMs idle without a split)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_blocks = b * -(-nq // _TQ)
-    tiles = -(-nk // _TK)
+
+def _plan_splits(q_blocks: int, tiles: int, slots: int) -> int:
+    """Key ranges per query tile: the count (at most _MAX_SPLITS) whose
+    waves of blocks over `slots` places on the card take the fewest key
+    tiles per place, the smaller on a tie (few query tiles at N = 5184
+    leave most SMs idle without a split)."""
     best, best_cost = 1, None
     for s in range(1, min(_MAX_SPLITS, tiles) + 1):
         per_split = -(-tiles // s)
         splits = -(-tiles // per_split)  # as the kernel rounds them
-        cost = -(-q_blocks * splits // sms) * per_split
+        cost = -(-q_blocks * splits // slots) * per_split
         if best_cost is None or cost < best_cost:
             best, best_cost = s, cost
     return best
+
+
+def _key_splits(b: int, nq: int, nk: int, device) -> int:
+    """Key ranges per query tile for the fp32 K1, which runs one block per
+    SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _plan_splits(b * -(-nq // _TQ), -(-nk // _TK), sms)
+
+
+def bf16_smem_bytes(resident: bool, c: int) -> int:
+    """The bf16 kernel's dynamic shared memory for c channels (its
+    smem_bytes): alignment slack, the query tile (all its atoms when
+    resident, else one per stage), the key ring and the values ring."""
+    q_atoms = -(-c // BF16_CK) if resident else BF16_STAGES
+    q_atom, k_atom = BF16_TQ * 2 * BF16_CK, BF16_TK * 2 * BF16_CK
+    v_tile = BF16_TK * BF16_VW * 4
+    return (BF16_ALIGN + q_atom * q_atoms
+            + BF16_STAGES * (k_atom + v_tile) + 8 * (BF16_STAGES + 1))
+
+
+@dataclass(frozen=True)
+class Bf16Plan:
+    """How `corr_fwd` launches the bf16 kernel: grid (query tiles, splits,
+    batch) of 512-thread blocks, one an SM; split y takes key tiles [y
+    tiles_per_split, (y + 1) tiles_per_split) of the `tiles` tiles."""
+
+    resident: bool
+    smem_bytes: int
+    splits: int
+    tiles_per_split: int
+    tiles: int
+    grid: tuple
+
+    def key_tile_ranges(self) -> list[tuple[int, int]]:
+        return [(y * self.tiles_per_split,
+                 min(self.tiles, (y + 1) * self.tiles_per_split))
+                for y in range(self.splits)]
+
+
+def bf16_plan(b: int, nq: int, nk: int, c: int, sms: int) -> Bf16Plan:
+    """The bf16 kernel's launch for [b, nq, c] queries against [b, nk, c]
+    keys on a card of `sms` SMs: its form and shared memory, and the split
+    of the keys that fills the card (the kernel rounds the requested count
+    the same way, so that no split is empty)."""
+    resident = bf16_smem_bytes(True, c) <= MAX_BLOCK_SMEM
+    q_tiles, tiles = -(-nq // BF16_TQ), -(-nk // BF16_TK)
+    want = _plan_splits(b * q_tiles, tiles, sms)
+    per_split = -(-tiles // want)
+    splits = -(-tiles // per_split)
+    return Bf16Plan(resident, bf16_smem_bytes(resident, c), splits,
+                    per_split, tiles, (q_tiles, splits, b))
+
+
+def bf16_kernel_form(c: int) -> tuple[bool, int]:
+    """The bf16 kernel's own choice for c channels, asked of the built
+    library: (query tile resident, dynamic shared memory bytes). The
+    plan's must agree."""
+    resident = ctypes.c_int(0)
+    smem = load_kernels().devc_corr_fwd_bf16_form(c, ctypes.byref(resident))
+    return bool(resident.value), smem
 
 
 def _check_input(name, t, shape, fn="corr_fwd", device=None,
@@ -85,8 +159,11 @@ def corr_fwd(theta, phi, values, temperature: float, emit_l: bool = False):
     [B, Nq, 3] in the inputs' dtype, sim [B, Nq, 1] (the row max) and,
     with emit_l, the softmax denominator l [B, Nq, 1] relative to that max
     (else None), both fp32: the Pallas kernel's output dtypes. bf16 inputs
-    run the kernel's bf16 variant, with the values upcast to fp32 here
-    (exact; a 6-byte bf16 row does not suit the kernel's copies).
+    run the bf16 kernel (scores on the tensor cores: within the fp32
+    kernel's tolerances of the plain version, not bit-equal to the fp32
+    kernel on the upcast inputs), with the values upcast to fp32 here
+    (exact) in rows padded to 16 bytes (a 6-byte bf16 row does not suit
+    the kernel's TMA copies).
     """
     if theta.dim() != 3 or phi.dim() != 3 or values.dim() != 3:
         raise ValueError("corr_fwd: theta, phi, values must be [B, N, C]")
@@ -115,11 +192,17 @@ def corr_fwd(theta, phi, values, temperature: float, emit_l: bool = False):
     dev = theta.device
     bf16 = dtype == torch.bfloat16
     if bf16:
-        values = values.float()
+        # fp32 rows of 16 bytes for the kernel's TMA boxes: one copy; the
+        # fourth column is never read
+        padded_values = torch.empty((b, nk, 4), dtype=torch.float32,
+                                    device=values.device)
+        padded_values[..., :3] = values
+        values = padded_values
     out = torch.empty((b, nq, 3), dtype=dtype, device=dev)
     sim = torch.empty((b, nq, 1), dtype=torch.float32, device=dev)
     l = torch.empty((b, nq, 1), dtype=torch.float32, device=dev) if emit_l else None
-    splits = _key_splits(b, nq, nk, dev)
+    splits = (bf16_plan(b, nq, nk, c, _sms(dev)).splits if bf16
+              else _key_splits(b, nq, nk, dev))
     # per key range: the partial (m, l, acc[3]) of every row, merged after
     part = (torch.empty((splits, b, nq, 5), dtype=torch.float32, device=dev)
             if splits > 1 else None)

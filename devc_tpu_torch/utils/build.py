@@ -35,8 +35,10 @@ _SIGNATURES = {
     # theta, phi, values, out, sim, l_out, part, batch, nq, nk, c, splits,
     # inv_t, stream
     "devc_corr_fwd": ([_P] * 7 + [_I] * 5 + [ctypes.c_float, _P], _I),
-    # the same, theta / phi / out in bf16
+    # the same, theta / phi / out in bf16 (corr_fwd_bf16.cu)
     "devc_corr_fwd_bf16": ([_P] * 7 + [_I] * 5 + [ctypes.c_float, _P], _I),
+    # c, *resident -> the bf16 kernel's dynamic shared memory (bytes)
+    "devc_corr_fwd_bf16_form": ([_I, ctypes.POINTER(_I)], _I),
     # a, b, c, d, x, n_sys, len, stream
     "devc_tridiag_pcr": ([_P] * 5 + [_I, _I, _P], _I),
     # src, guide, out, batch, h, w, axis, guide_bstride, lam, sigma, stream
