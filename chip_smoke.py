@@ -97,6 +97,29 @@ line {"ok": true, "device": {...}}:
                cli.colorize --train_ckpt on the 8 frames at 432x768 (K1 8,
                smooth_pass 48, chroma); the bf16 mode's quality on the
                exported checkpoint (as in phase bf16).
+ 14. parallel  the parallel layer, ranks as spawned processes (any rank
+               that fails or runs late fails the phase; none is left
+               running): K1 alone at the shard shapes (rows: N/2 queries;
+               keys: N/2 keys with l) at N = 5184 and 20736 with ms, plain
+               and SDPA times and bounds, and K1, K3 and K2b at a rank's
+               half of the training batch (B = 8); 2 ranks sharing the
+               card over gloo: correspondence_warp_sharded / _key_sharded at both N
+               (sim bit-equal to unsharded K1, out within K1's tolerances
+               of the plain version, ms of the call per rank), frames at
+               432x768 with corr_sharding rows and keys (teacher-forced,
+               within +-1 of the unsharded frames) and the data-parallel
+               batched step (4 clips, 2 a rank) against the one-process
+               B = 4 step; make_train_step_spmd at batch 16 (8 a rank),
+               216x384, full width: its gradients against the one-process
+               step's under phase train_parity's rule (T = 1, recurrence
+               damped, within 3x an fp32 step's distance from float64),
+               then TrainConfig defaults, ms a step and peak memory per
+               rank; the same on one NCCL rank; python -m
+               torch.distributed.run --nproc_per_node 2 -m
+               devc_tpu_torch.cli.train (12 steps at batch 16, loss
+               falling, rank 0 alone logging and checkpointing, then
+               --resume for 2 more). The ranks report their launch counts:
+               paths parallel, train_spmd and cli_train_ranks.
 
 Then the kernel summary line, the nvidia-smi line, and the final line.
 Frames, batches and weights are made from --seed with numpy; nothing is
@@ -1571,6 +1594,8 @@ def phase_train_parity(seed: int):
         assert abs(runs["cuda"][0][k] - v) <= 1e-3 * abs(v) + 1e-6, (k, case)
     for net, errs in case["grad_rel_l2_vs_fp64"].items():
         assert errs["cuda"] <= 3 * errs["cpu32"] + 1e-3, (net, case)
+    return {net: errs["cpu32"] for net, errs in
+            case["grad_rel_l2_vs_fp64"].items()}
 
 
 # kernel name fragments -> the training step's layers, first match wins
@@ -2469,6 +2494,548 @@ def phase_bf16(sds, frames, ref, seed: int, card: str):
     return k1_rows, dict(launches, corr_fwd_bf16=bf16_k1), layers
 
 
+# ---------------------------------------------------------------- parallel
+# the parallel layer on one card: 2 ranks sharing it over gloo, and one
+# NCCL rank; the children report their launch counts and numbers here
+PAR_WORLD = 2
+PAR_K1_T = (0.01, 1e-10)  # accuracy at both; timed at 1e-10 (inference)
+PAR_SPMD_TIMED_STEPS = 3  # after one warm-up step
+PAR_CLI_STEPS = 12
+
+
+def _par_k1_inputs(seed: int, n: int, dev):
+    import numpy as np
+
+    return _k1_inputs(np.random.RandomState(seed + n), 1, n, dev)
+
+
+def _par_k1_bound(nq: int, nk: int, emit_l: bool, b: int = 1) -> dict:
+    """K1's bound at one shard's shape: 2 b nq nk 259 operations; theta,
+    phi, values read once, out and sim (and l) written once."""
+    return bound(2 * b * nq * nk * 259,
+                 4 * b * (nq * 256 + nk * (256 + 3) + nq * (4 + emit_l)))
+
+
+def _par_train_kernels(seed: int):
+    """K1 (with l, as training runs it), K3 and K2b at one rank's half of
+    the training batch (B = 8, N = 5184, C = 256, T = 0.01), on the card
+    alone: against their plain versions, ms, plain ms and bounds (K1's
+    SDPA too). Returns (K1's row, {kernel: row})."""
+    import numpy as np
+    import torch
+
+    from devc_tpu_torch.ops import cuda_corr
+    from devc_tpu_torch.ops.correspondence import (
+        correspondence_bwd_plain,
+        correspondence_fwd_plain,
+    )
+
+    rng = np.random.RandomState(seed + 70)
+    b, n, c, t = TRAIN_B // PAR_WORLD, TRAIN_N, 256, 0.01
+    theta, phi = unit_rows(rng, b, n, c), unit_rows(rng, b, n, c)
+    values = (rng.rand(b, n, 3).astype(np.float32) - 0.5) * 100
+    d_out = rng.randn(b, n, 3).astype(np.float32)
+    d_sim = rng.randn(b, n, 1).astype(np.float32)
+    theta, phi, values, d_out, d_sim = (torch.from_numpy(x).cuda() for x in
+                                        (theta, phi, values, d_out, d_sim))
+    out, sim, l = cuda_corr.corr_fwd(theta, phi, values, t, emit_l=True)
+    p_out, p_sim, _ = correspondence_fwd_plain(theta, phi, values, t)
+    fwd_err = max((out - p_out).abs().max().item(),
+                  (sim - p_sim).abs().max().item())
+    assert fwd_err <= 1e-3, fwd_err  # phase kernels' bound at T = 0.01
+    del p_out, p_sim
+    args = (theta, phi, values, sim, l, out, d_out, d_sim, t)
+    errs = {}
+    for name, g, w in zip(("dtheta", "dphi", "dvalues"),
+                          cuda_corr.corr_bwd(*args),
+                          correspondence_bwd_plain(*args)):
+        errs[name] = (g - w).abs().max().item()
+        assert bool(((g - w).abs() <= 5e-3 + 1e-3 * w.abs()).all()), name
+    k1 = {"kind": "train_shard", "b": b, "n": n, "nq": n, "nk": n, "c": c,
+          "temperature": t, "emit_l": True, "max_abs_err": fwd_err,
+          "ms": cuda_ms(lambda: cuda_corr.corr_fwd(theta, phi, values, t,
+                                                   emit_l=True), queued=True),
+          "plain_ms": cuda_ms(lambda: correspondence_fwd_plain(
+              theta, phi, values, t), queued=True),
+          **_par_k1_bound(n, n, True, b)}
+    k1["library_ms"], k1["library_call"] = sdpa_ms(theta, phi, values, t)
+    dd = (d_out * out).sum(dim=-1, keepdim=True)
+    df = torch.empty((b, cuda_corr.padded(n), cuda_corr.padded(n)),
+                     dtype=torch.float32, device=theta.device)
+    kargs = (theta, phi, values, sim, l, dd, d_sim, d_out, t, df)
+    bounds = bwd_bounds(b, n, n, c)
+    plain_ms = cuda_ms(lambda: correspondence_bwd_plain(*args), queued=True)
+    bwd = {}
+    # K3 first: it fills the df scratch K2b reads
+    for kernel, fn, outs in (
+            ("corr_bwd_dkv", lambda: cuda_corr.corr_bwd_dkv(*kargs),
+             ("dphi", "dvalues")),
+            ("corr_bwd_dq", lambda: cuda_corr.corr_bwd_dq(df, phi, n),
+             ("dtheta",))):
+        bwd[kernel] = {"b": b, "n": n, "c": c, "temperature": t,
+                       "ms": cuda_ms(fn, queued=True),
+                       "plain_ms_both_outputs": plain_ms, "library_ms": None,
+                       "max_abs_err": max(errs[o] for o in outs),
+                       **bounds[kernel]}
+    del theta, phi, values, d_out, d_sim, out, sim, l, args, kargs, df
+    torch.cuda.empty_cache()
+    return k1, bwd
+
+
+def _par_k1_reference(seed: int):
+    """In this process, per N: unsharded K1 and the plain version at
+    PAR_K1_T (numpy, for the ranks to hold their results against), and K1
+    alone at the two shard shapes (rows: N/2 queries, all keys; keys: all
+    queries, N/2 keys with l) with its plain version and SDPA."""
+    import torch
+
+    from devc_tpu_torch.ops.correspondence import (
+        correspondence_fwd_plain,
+        correspondence_warp_einsum,
+    )
+    from devc_tpu_torch.ops.cuda_corr import corr_fwd
+
+    refs, rows = {}, []
+    for n in K1_SIZES:
+        theta, phi, values = _par_k1_inputs(seed, n, "cuda")
+        for t in PAR_K1_T:
+            out, sim, _ = corr_fwd(theta, phi, values, t)
+            p_out, p_sim = correspondence_warp_einsum(theta, phi, values, t)
+            refs[(n, t)] = {k: v.cpu().numpy() for k, v in (
+                ("out", out), ("sim", sim), ("plain_out", p_out),
+                ("plain_sim", p_sim))}
+            del out, sim, p_out, p_sim
+        h, t = n // 2, PAR_K1_T[-1]
+        shards = {
+            "rows": (lambda: corr_fwd(theta[:, :h], phi, values, t),
+                     lambda: correspondence_warp_einsum(theta[:, :h], phi,
+                                                        values, t),
+                     (theta[:, :h], phi, values), n // 2, n, False),
+            "keys": (lambda: corr_fwd(theta, phi[:, :h], values[:, :h], t,
+                                      emit_l=True),
+                     lambda: correspondence_fwd_plain(theta, phi[:, :h],
+                                                      values[:, :h], t),
+                     (theta, phi[:, :h], values[:, :h]), n, n // 2, True)}
+        for kind, (kernel, plain, args, nq, nk, emit_l) in shards.items():
+            row = {"kind": kind, "b": 1, "n": n, "nq": nq, "nk": nk,
+                   "c": 256, "temperature": t, "emit_l": emit_l,
+                   "ms": cuda_ms(kernel, queued=True),
+                   "plain_ms": cuda_ms(plain, queued=True)}
+            row["library_ms"], row["library_call"] = sdpa_ms(
+                *(a.contiguous() for a in args), t)
+            row.update(_par_k1_bound(nq, nk, emit_l))
+            rows.append(row)
+            torch.cuda.empty_cache()
+        del theta, phi, values
+        torch.cuda.empty_cache()
+    return refs, rows
+
+
+def _par_rank_inference(ctx, seed: int, refs: dict):
+    """One rank of the inference half: the sharded K1 at both sizes
+    against the unsharded kernel (sim bit-equal) and its plain version
+    (K1's tolerances), ms of the sharded call on this rank; then the
+    counted path: frames at 432x768 with corr_sharding rows and keys
+    (teacher-forced: each frame's carry from the unsharded step), and the
+    data-parallel batched step (4 clips, 2 a rank); rank 0 then runs the
+    one-process B = 4 step to hold the gathered one against."""
+    import numpy as np
+    import torch
+
+    from devc_tpu_torch.parallel.inference import (
+        batched_frame_step,
+        prepare_references_batched,
+    )
+    from devc_tpu_torch.parallel.mesh import (
+        gather_batch,
+        make_mesh,
+        shard_batch,
+    )
+    from devc_tpu_torch.parallel.sharded_corr import (
+        correspondence_warp_key_sharded,
+        correspondence_warp_sharded,
+    )
+    from devc_tpu_torch.pipeline.frame import PipelineModels
+    from devc_tpu_torch.pipeline.video import use_full_fp32
+    from devc_tpu_torch.utils import build
+    from devc_tpu_torch.utils.convert import state_dicts_from_numpy
+    from devc_tpu_torch.utils.init import host_pipeline_params
+
+    use_full_fp32()
+    build.load_kernels()
+    mesh = make_mesh(n_data=1, n_model=ctx.world)
+    fns = {"rows": correspondence_warp_sharded,
+           "keys": correspondence_warp_key_sharded}
+    k1 = []
+    for n in K1_SIZES:
+        theta, phi, values = _par_k1_inputs(seed, n, ctx.device)
+        for kind, fn in fns.items():
+            case = {"kind": kind, "n": n, "rank": ctx.rank}
+            for t in PAR_K1_T:
+                w, s = fn(theta, phi, values, mesh, t)
+                ref = refs[(n, t)]
+                w, s = w.cpu().numpy(), s.cpu().numpy()
+                case[f"sim_bit_equal_t{t}"] = bool(np.array_equal(
+                    s, ref["sim"]))
+                row_err = np.abs(w - ref["plain_out"]).max(axis=-1)
+                case[f"sim_max_abs_err_vs_plain_t{t}"] = float(
+                    np.abs(s - ref["plain_sim"]).max())
+                case[f"out_max_abs_err_vs_plain_t{t}"] = float(row_err.max())
+                case[f"out_max_abs_err_vs_kernel_t{t}"] = float(
+                    np.abs(w - ref["out"]).max())
+                if t == 1e-10:  # an argmax-average: near-tie flips only
+                    case["rows_differing_t1e-10"] = float(
+                        (row_err > 1e-4).mean())
+            case["ms_per_rank"] = cuda_ms(
+                lambda: fn(theta, phi, values, mesh, PAR_K1_T[-1]))
+            k1.append(case)
+        del theta, phi, values
+        torch.cuda.empty_cache()
+
+    models = PipelineModels.from_state_dicts(
+        state_dicts_from_numpy(host_pipeline_params(seed)), ctx.device)
+    dev = ctx.device
+    frames = [torch.from_numpy(f).to(dev)[None]
+              for f in textured_frames(seed + 60, 2, (H, W))]
+    ref_u8 = torch.from_numpy(textured_frames(seed + 61, 1, (H, W))[0]).to(
+        dev)[None]
+    _, state = prepare_references_batched(models, ref_u8)
+    carries = [torch.zeros((1, H // 2, W // 2, 3), device=dev)]
+    want = []
+    for f in frames:  # the unsharded frames and their carries
+        out, last = batched_frame_step(models, f, carries[-1], state)
+        want.append(out)
+        carries.append(last)
+    clips = torch.from_numpy(np.stack(textured_frames(seed + 62, 4, (H, W))))
+    clip_refs = torch.from_numpy(np.stack(textured_frames(seed + 63, 4,
+                                                          (H, W))))
+    torch.cuda.synchronize()
+
+    _counts_zero()
+    frames_diff = {}
+    for kind in fns:
+        diffs = []
+        for f, carry, w in zip(frames, carries, want):
+            out, _ = batched_frame_step(models, f, carry, state,
+                                        corr_sharding=(mesh, "model", kind))
+            diffs.append(int((out.int() - w.int()).abs().max()))
+        frames_diff[kind] = diffs
+    dp = make_mesh(n_data=ctx.world, n_model=1)
+    local = shard_batch(dp, {"clips": clips, "refs": clip_refs})
+    _, dp_state = prepare_references_batched(models, local["refs"].to(dev))
+    dp_last = torch.zeros((local["clips"].shape[0], H // 2, W // 2, 3),
+                          device=dev)
+    t0 = time.perf_counter()
+    out, last = batched_frame_step(models, local["clips"].to(dev), dp_last,
+                                   dp_state)
+    out, last = gather_batch(dp, (out, last))
+    torch.cuda.synchronize()
+    dp_ms = (time.perf_counter() - t0) * 1e3
+    counts = _counts()
+    result = {"k1": k1, "frames_max_uint8_diff": frames_diff,
+              "data_parallel_step_ms_host": dp_ms, "counts": counts}
+    if ctx.rank == 0:
+        _, one_state = prepare_references_batched(models, clip_refs.to(dev))
+        one_out, one_last = batched_frame_step(
+            models, clips.to(dev), torch.zeros_like(last), one_state)
+        result["data_parallel_max_uint8_diff"] = int(
+            (out.int() - one_out.int()).abs().max())
+        result["data_parallel_carry_max_abs_diff"] = float(
+            (last - one_last).abs().max())
+    return result
+
+
+def _par_rank_train(ctx, seed: int, one_path: str):
+    """One rank of the data-parallel training step at batch 16 (this
+    rank's block of it), 216x384, full width: one step at phase
+    train_parity's settings (T = 1, recurrence damped, no noise) with
+    gradient-recording optimizers, held (rank 0) against the one-process
+    step's gradients in one_path; then TrainConfig's defaults with the
+    real optimizers: one warm-up step and PAR_SPMD_TIMED_STEPS timed,
+    ms a step, peak memory and launch counts of this rank."""
+    import numpy as np
+    import torch
+
+    from devc_tpu_torch.parallel.mesh import (
+        make_mesh,
+        shard_batch,
+        shard_params,
+    )
+    from devc_tpu_torch.pipeline.video import use_full_fp32
+    from devc_tpu_torch.train import loop
+    from devc_tpu_torch.train.state import make_optimizers
+    from devc_tpu_torch.utils import build
+    from devc_tpu_torch.utils.convert import frozen_vgg, train_state_from_numpy
+
+    use_full_fp32()
+    build.load_kernels()
+    dev = ctx.device
+    mesh = make_mesh()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in shard_batch(
+        mesh, synthetic_batch_u8(seed + 5, TRAIN_B, TRAIN_HW)).items()}
+    result = {"rank": ctx.rank, "backend": ctx.backend,
+              "batch_per_rank": int(batch["last_rgb"].shape[0])}
+
+    vgg_np, params_g, params_d, sn = train_weights(seed, 1e-3)
+    state = train_state_from_numpy(params_g, params_d, sn, GradRecorder(),
+                                   GradRecorder(), device=dev)
+    shard_params(mesh, [state.params_g, state.params_d, state.sn_state])
+    step = loop.make_train_step_spmd(
+        mesh, GradRecorder(), GradRecorder(), frozen_vgg(vgg_np, dev),
+        loop.TrainConfig(luminance_noise=0.0, temperature=1.0),
+        device_preprocess=True)
+    new, metrics = step(state, batch)
+    if ctx.rank == 0:
+        one = torch.load(one_path, weights_only=True)
+        grads = {g: [t.double().cpu() for t in ts]
+                 for g, ts in new.opt_state_g.items()}
+        grads["critic"] = [t.double().cpu() for t in new.opt_state_d[""]]
+        result["grad_rel_l2_vs_one_process"] = {
+            net: _rel_l2(grads[net], [t.double() for t in one["grads"][net]])
+            for net in grads}
+        result["grads_bit_equal_to_one_process"] = all(
+            torch.equal(a.float(), b) for net in grads
+            for a, b in zip(grads[net], one["grads"][net]))
+        result["loss_rel_err_vs_one_process"] = {
+            k: abs(v.item() - one["metrics"][k]) / max(abs(one["metrics"][k]),
+                                                       1e-12)
+            for k, v in metrics.items()}
+    del state, new, step
+    torch.cuda.empty_cache()
+
+    vgg_np, params_g, params_d, sn = train_weights(seed)
+    tx_g, tx_d = make_optimizers()
+    state = train_state_from_numpy(params_g, params_d, sn, tx_g, tx_d,
+                                   device=dev)
+    shard_params(mesh, [state.params_g, state.params_d, state.sn_state])
+    step = loop.make_train_step_spmd(mesh, tx_g, tx_d, frozen_vgg(vgg_np, dev),
+                                     loop.TrainConfig(),
+                                     device_preprocess=True)
+    gen = torch.Generator(device=dev).manual_seed(
+        loop.noise_seed(seed, mesh.index("data")))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _train_counts_zero()
+    step_ms, losses = [], []
+    for _ in range(1 + PAR_SPMD_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: v.item() for k, v in metrics.items()})
+    result.update(counts=_train_counts(), step_ms=step_ms,
+                  median_step_ms=statistics.median(step_ms[1:]),
+                  peak_mem_mib=torch.cuda.max_memory_allocated() / 2**20,
+                  losses_last=losses[-1],
+                  finite=all(np.isfinite(v) for m in losses
+                             for v in m.values()))
+    return result
+
+
+def _par_cli_train(tmp: str, seed: int) -> dict:
+    """python -m devc_tpu_torch.cli.train under torchrun, 2 ranks on the
+    one card (gloo), PAR_CLI_STEPS steps at batch 16, 216x384 on the
+    generated datasets, then --resume for 2 more. Returns both runs'
+    summaries of every rank and what the directories hold."""
+    import numpy as np
+
+    from devc_tpu_torch.parallel.launch import free_port
+
+    imagenet, video = (os.path.join(tmp, d) for d in ("imagenet", "video"))
+    write_imagenet_root(imagenet, seed + 40)
+    write_video_root(video, seed + 41)
+    ckpt = os.path.join(tmp, "ckpt")
+    common = ["--data_root", video, "--data_root_imagenet", imagenet,
+              "--vgg_ckpt", "/nonexistent/vgg19_conv.pth", "--seed",
+              str(seed), "--checkpoint_dir", ckpt, "--workers", "4",
+              "--checkpoint_step", str(PAR_CLI_STEPS), "--print_step", "1"]
+
+    def run(log_dir, steps, *extra):
+        # each rank's output to a file of its own (--redirects 3), so that
+        # the ranks' lines do not interleave
+        rank_logs = log_dir + "_ranks"
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nnodes", "1", "--nproc_per_node", str(PAR_WORLD),
+               "--master_addr", "localhost", "--master_port",
+               str(free_port()), "--log_dir", rank_logs, "--redirects", "3",
+               "-m", "devc_tpu_torch.cli.train",
+               *common, "--log_dir", log_dir, "--max_steps", str(steps),
+               *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=420)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+            raise
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+        if proc.returncode != 0:
+            raise RuntimeError(f"torchrun cli.train exited "
+                               f"{proc.returncode}:\n{out[-6000:]}")
+        summaries = []
+        for d, _, files in os.walk(rank_logs):
+            if "stdout.log" in files:
+                summaries += [json.loads(ln)["train_summary"] for ln in
+                              open(os.path.join(d, "stdout.log"))
+                              if ln.startswith('{"train_summary"')]
+        summaries.sort(key=lambda s: s["rank"])
+        if len(summaries) != PAR_WORLD:
+            raise RuntimeError(f"{len(summaries)} rank summaries under "
+                               f"{rank_logs}:\n{out[-6000:]}")
+        lines = [json.loads(ln) for ln in
+                 open(os.path.join(log_dir, "metrics.jsonl"))]
+        return {"wall_s": time.perf_counter() - t0, "summaries": summaries,
+                "logged_steps": [ln["step"] for ln in lines],
+                "total_loss": [ln["total_loss"] for ln in lines]}
+
+    first = run(os.path.join(tmp, "runs"), PAR_CLI_STEPS)
+    files_first = sorted(os.listdir(ckpt))
+    second = run(os.path.join(tmp, "runs2"), 2, "--resume")
+    loss = first["total_loss"]
+    return {"first": first, "second": second, "files_after_first":
+            files_first, "files_after_resume": sorted(os.listdir(ckpt)),
+            "first_4_mean": float(np.mean(loss[:4])),
+            "last_4_mean": float(np.mean(loss[-4:]))}
+
+
+def phase_parallel(seed: int, card: str, fp32_noise: dict):
+    """The parallel layer (parallel/, make_train_step_spmd, cli.train
+    under torchrun) on the one card, ranks as spawned processes
+    (parallel/launch.py: any failed or late rank fails the phase, and
+    none is left running). fp32_noise: phase train_parity's distance of
+    an fp32 step's gradients from float64, per network, the yardstick of
+    C8's rule. Returns (K1's rows at the shard shapes and at a rank's
+    half of the training batch, K3's and K2b's rows there, launches by
+    path: "parallel", "train_spmd", "cli_train_ranks")."""
+    import numpy as np
+    import torch
+
+    from devc_tpu_torch.parallel.launch import spawn_ranks
+    from devc_tpu_torch.train import loop
+
+    t_phase = time.perf_counter()
+    refs, k1_rows = _par_k1_reference(seed)
+    k1_train, bwd_train = _par_train_kernels(seed)
+    emit("parallel", check="train_shard_kernels", card=card, corr_fwd=k1_train,
+         **bwd_train)
+    torch.cuda.empty_cache()
+    inf = spawn_ranks(_par_rank_inference, PAR_WORLD, (seed, refs),
+                      device="cuda", timeout=300, collective_timeout=120)
+    for r in inf:
+        for case in r["k1"]:
+            emit("parallel", check="k1_sharded", card=card, **case)
+            for t in PAR_K1_T:
+                # a max is exact in any order; out: K1's tolerances
+                assert case[f"sim_bit_equal_t{t}"], case
+                assert case[f"sim_max_abs_err_vs_plain_t{t}"] <= 1e-5, case
+            assert case["out_max_abs_err_vs_plain_t0.01"] <= 1e-3, case
+            assert case["rows_differing_t1e-10"] <= 1e-3, case
+    for row in k1_rows:
+        cases = [c for r in inf for c in r["k1"]
+                 if c["kind"] == row["kind"] and c["n"] == row["n"]]
+        row["ms_sharded_call_per_rank"] = [c["ms_per_rank"] for c in cases]
+        row["max_abs_err"] = max(max(c["out_max_abs_err_vs_plain_t0.01"],
+                                     c["sim_max_abs_err_vs_plain_t0.01"])
+                                 for c in cases)
+        emit("parallel", check="k1_shard_shape", card=card, **row)
+    r0 = inf[0]
+    emit("parallel", check="frames_and_batched_step", hw=[H, W],
+         frames_max_uint8_diff=[r["frames_max_uint8_diff"] for r in inf],
+         data_parallel_max_uint8_diff=r0["data_parallel_max_uint8_diff"],
+         data_parallel_carry_max_abs_diff=r0[
+             "data_parallel_carry_max_abs_diff"],
+         data_parallel_step_ms_host=[r["data_parallel_step_ms_host"]
+                                     for r in inf],
+         launches_by_rank=[r["counts"] for r in inf], card=card)
+    for r in inf:
+        assert all(d <= 1 for ds in r["frames_max_uint8_diff"].values()
+                   for d in ds), r["frames_max_uint8_diff"]
+    assert r0["data_parallel_max_uint8_diff"] <= 1, r0
+    parallel = {k: sum(r["counts"][k] for r in inf) for k in r0["counts"]}
+    # per rank: 2 frames x 2 kinds + the batched step, one K1 each
+    assert parallel["corr_fwd"] == PAR_WORLD * 5, parallel
+    assert parallel["smooth_pass"] == PAR_WORLD * 5 * 6, parallel
+
+    # the one-process step's gradients at train_parity's settings
+    weights = train_weights(seed, 1e-3)
+    batch_u8 = synthetic_batch_u8(seed + 5, TRAIN_B, TRAIN_HW)
+    cfg = loop.TrainConfig(luminance_noise=0.0, temperature=1.0)
+    metrics, grads, _ = _grad_step(weights, batch_u8, cfg, "cuda",
+                                   torch.float32)
+    tmp = tempfile.mkdtemp(prefix="devc_chip_parallel_")
+    try:
+        one_path = os.path.join(tmp, "one_process_grads.pt")
+        torch.save({"metrics": metrics, "grads": {
+            k: [t.float() for t in v] for k, v in grads.items()}}, one_path)
+        del grads
+        torch.cuda.empty_cache()
+        spmd = spawn_ranks(_par_rank_train, PAR_WORLD, (seed, one_path),
+                           device="cuda", timeout=360,
+                           collective_timeout=180)
+        (nccl,) = spawn_ranks(_par_rank_train, 1, (seed, one_path),
+                              device="cuda", timeout=240,
+                              collective_timeout=180)
+        for name, runs in (("gloo_2_ranks", spmd), ("nccl_1_rank", [nccl])):
+            emit("parallel", check="train_spmd", ranks=name, batch=TRAIN_B,
+                 image_size=list(TRAIN_HW), runs=runs,
+                 fp32_noise_vs_fp64=fp32_noise, card=card)
+            r = runs[0]
+            for k, v in r["loss_rel_err_vs_one_process"].items():
+                assert v <= 1e-3, (name, k, r)
+            for net, err in r["grad_rel_l2_vs_one_process"].items():
+                # C8: within 3x an fp32 step's own distance from float64
+                assert err <= 3 * fp32_noise[net] + 1e-3, (name, net, r)
+            for rr in runs:
+                assert rr["finite"], rr
+                assert rr["counts"] == {
+                    "corr_fwd": 4 * (1 + PAR_SPMD_TIMED_STEPS),
+                    "corr_bwd_dq": 2 * (1 + PAR_SPMD_TIMED_STEPS),
+                    "corr_bwd_dkv": 2 * (1 + PAR_SPMD_TIMED_STEPS)}, rr
+        assert [r["backend"] for r in spmd] == ["gloo"] * PAR_WORLD
+        assert nccl["backend"] == "nccl", nccl
+        train_spmd = {k: sum(r["counts"][k] for r in spmd + [nccl])
+                      for k in nccl["counts"]}
+
+        cli = _par_cli_train(tmp, seed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    first, second = cli["first"], cli["second"]
+    emit("parallel", check="cli_train_torchrun", steps=PAR_CLI_STEPS,
+         batch=TRAIN_B, image_size=list(TRAIN_HW), card=card,
+         **{k: v for k, v in cli.items() if k not in ("first", "second")},
+         first=first, second=second)
+    assert [s["rank"] for s in first["summaries"]] == list(range(PAR_WORLD))
+    assert all(s["backend"] == "gloo" and s["last_step"] == PAR_CLI_STEPS
+               for s in first["summaries"]), first
+    assert all(s["first_step"] == PAR_CLI_STEPS + 1
+               and s["last_step"] == PAR_CLI_STEPS + 2
+               for s in second["summaries"]), second
+    # rank 0 alone logs and checkpoints: one line a step, one file a save
+    assert first["logged_steps"] == list(range(1, PAR_CLI_STEPS + 1)), first
+    assert second["logged_steps"] == [PAR_CLI_STEPS + 1,
+                                      PAR_CLI_STEPS + 2], second
+    assert cli["files_after_first"] == [
+        "opt.txt", "run_metadata.json", f"step_{PAR_CLI_STEPS:09d}.pt"], cli
+    assert cli["last_4_mean"] < cli["first_4_mean"], cli
+    assert all(np.isfinite(v) for v in first["total_loss"]), first
+    names = ("corr_fwd", "corr_bwd_dq", "corr_bwd_dkv")
+    cli_counts = {k: sum(s["launches_corr_fwd_dq_dkv"][i]
+                         for run in (first, second)
+                         for s in run["summaries"])
+                  for i, k in enumerate(names)}
+    assert cli_counts["corr_bwd_dq"] == PAR_WORLD * 2 * (PAR_CLI_STEPS + 2)
+    emit("parallel", check="done", seconds=time.perf_counter() - t_phase)
+    return k1_rows + [k1_train], bwd_train, {
+        "parallel": parallel, "train_spmd": train_spmd,
+        "cli_train_ranks": cli_counts}
+
+
 def _clone_to_cpu(tree):
     import torch
 
@@ -2530,10 +3097,12 @@ def main(argv=None) -> int:
     torch._C._cuda_clearCublasWorkspaces()
     emit("serve", check="memory_after_models_freed", allocated_mib=residue,
          allocated_mib_without_cublas_workspaces=allocated_mib())
-    phase_train_parity(args.seed)
+    fp32_noise = phase_train_parity(args.seed)
     train = phase_train(args.seed, card)
     cli_train, cli_colorize, cli_colorize_bf16 = phase_cli_train(
         frames, ref, args.seed, card)
+    torch.cuda.empty_cache()
+    k1_par, bwd_par, par_paths = phase_parallel(args.seed, card, fp32_noise)
 
     # the serving path's shapes beside each kernel's own
     pick = ("b", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
@@ -2544,8 +3113,18 @@ def main(argv=None) -> int:
                             library_ms=c["library_ms"], path="serve",
                             dtype="float32")
                        for c in k1_serve]
+    # the shard shapes of the parallel layer (K1 alone on the card; the
+    # sharded call's ms on each of the two ranks beside it), and a rank's
+    # half of the training batch (K1, K3, K2b)
+    k1["by_shape"] += [dict(r, dtype="float32", path="train_spmd"
+                            if r["kind"] == "train_shard" else "parallel")
+                       for r in k1_par]
+    for name, row in bwd_par.items():
+        bwd[name]["by_shape"] = [dict(row, path="train_spmd")]
+        bwd[name]["max_abs_err"] = max(bwd[name]["max_abs_err"],
+                                       row["max_abs_err"])
     k1["max_abs_err"] = max([k1["max_abs_err"]]
-                            + [c["max_abs_err"] for c in k1_serve])
+                            + [c["max_abs_err"] for c in k1_serve + k1_par])
     # K1's bf16 kernel at its inference shapes, N = 5184 first
     k1_bf16_rows = [dict(
         {k: c[k] for k in ("b", "n", "c", "temperature", "ms", "plain_ms",
@@ -2570,10 +3149,14 @@ def main(argv=None) -> int:
     # steps, cli.colorize --train_ckpt on its checkpoint without and with
     # --bf16). corr_fwd's wrapper counts both of K1's kernels; its bf16
     # launches are the bf16 kernel's, the rest the fp32 kernel's.
+    # the parallel layer's paths count in the ranks' processes, summed
+    # over the ranks: "parallel" (sharded frames and the data-parallel
+    # batched step), "train_spmd" (the 2-rank and the NCCL step),
+    # "cli_train_ranks" (cli.train under torchrun)
     paths = {"main": launches, "bf16": bf16_launches, "serve": serve,
              "train": train, "cli_train": cli_train,
              "cli_train_colorize": cli_colorize,
-             "cli_train_colorize_bf16": cli_colorize_bf16}
+             "cli_train_colorize_bf16": cli_colorize_bf16, **par_paths}
 
     def count(counts, name):
         if name == "corr_fwd":

@@ -23,7 +23,8 @@ Package map (each module mirrors its devc_tpu namesake):
   pipeline      frame composition, the device steps (one frame, R
                 exemplars, B clips), clip drivers (stream / scan), the
                 captured step (graph), the batched clip scheduler
-  parallel      the B-clip batched step
+  parallel      the mesh of ranks (torch.distributed), the correspondence
+                split over ranks, the B-clip batched step, spawn_ranks
   train         losses, optimizers and TrainState, the training step,
                 checkpoints
   utils         numpy random init, weight conversion, kernel build,

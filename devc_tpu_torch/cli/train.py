@@ -1,16 +1,32 @@
-"""Train the colorization networks in PyTorch on one GPU (mirrors devc_tpu's
-cli/train.py; reference train.py:39-79).
+"""Train the colorization networks in PyTorch on one GPU or data-parallel
+over several ranks (mirrors devc_tpu's cli/train.py; reference
+train.py:39-79).
 
   python -m devc_tpu_torch.cli.train --data_root <video_pairs> \\
       --data_root_imagenet <imagenet_pairs> --checkpoint_dir ckpt/
+  torchrun --nproc_per_node 2 -m devc_tpu_torch.cli.train ... (2 ranks)
 
-The flags and defaults are devc_tpu's, apart from its mesh flags
-(--platform, --n_model, --spmd_step), which --device replaces: one card
-has no mesh. The step is train/loop.py's GAN step; batches come from
-PrefetchLoader's threads, pinned, and are copied to the card without
-blocking; the luminance noise comes from one torch.Generator seeded with
---seed. Checkpoints are torch.save files (train/checkpoint.py), which
-devc_tpu's orbax directories cannot read, nor the other way round.
+The flags and defaults are devc_tpu's; --device (cuda or cpu) takes the
+place of its --platform. The step is train/loop.py's GAN step; batches
+come from PrefetchLoader's threads, pinned, and are copied to the card
+without blocking; the luminance noise comes from a torch.Generator seeded
+from --seed and the rank's data index. Checkpoints are torch.save files
+(train/checkpoint.py), which devc_tpu's orbax directories cannot read,
+nor the other way round.
+
+Under torchrun the ranks form devc_tpu's ("data", "model") mesh
+(parallel/mesh.py): rank r computes on cuda:(r % device_count), over NCCL
+when each rank has a card, gloo when ranks share one (or with --device
+cpu). The data axis is the largest divisor of --batch_size that fits in
+world // --n_model ranks, as in devc_tpu; ranks left over sit idle. Every
+rank builds the same global batch from the same seeded loader and keeps
+its block, so batches are those of a one-process run. --spmd_step: on
+(auto with more than one rank) runs make_train_step_spmd, whose gradient
+averages are one flat all_reduce per network; off keeps the same
+collectives with one all_reduce per gradient tensor. Rank 0 alone writes
+the options, run_metadata.json, the logs and the checkpoints; the others
+wait for it at a barrier, and on --resume every rank restores the same
+checkpoint.
 
 --resume restores the latest checkpoint's step, weights and optimizer
 states, and continues counting from there; the loader and the noise
@@ -93,15 +109,31 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' fails when no GPU is present")
+    p.add_argument("--n_model", type=int, default=1,
+                   help="size of the mesh's model axis (ranks per data "
+                        "replica)")
+    p.add_argument("--spmd_step", choices=("auto", "on", "off"),
+                   default="auto",
+                   help="over several ranks: on (auto) averages each "
+                        "network's gradients with one flat all_reduce, "
+                        "off with one all_reduce per gradient tensor")
     args = p.parse_args(argv)
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from devc_tpu_torch.data.videoloader import (
         ImageNetPairsDataset,
         PrefetchLoader,
         VideoPairsDataset,
+    )
+    from devc_tpu_torch.ops import cuda_corr
+    from devc_tpu_torch.parallel.mesh import (
+        init_distributed,
+        make_mesh,
+        shard_batch,
+        shard_params,
     )
     from devc_tpu_torch.train import loop
     from devc_tpu_torch.train.checkpoint import (
@@ -111,7 +143,6 @@ def main(argv=None):
     )
     from devc_tpu_torch.train.state import create_train_state
     from devc_tpu_torch.utils.convert import (
-        checked_device,
         frozen_vgg_from_state_dict,
         vgg19_state_dict,
     )
@@ -124,10 +155,34 @@ def main(argv=None):
     )
     from devc_tpu_torch.utils.profiling import StepTimer
 
-    device = checked_device(args.device)
-    print("options:", vars(args))
-    os.makedirs(args.checkpoint_dir, exist_ok=True)
-    dump_options(args, os.path.join(args.checkpoint_dir, "opt.txt"))
+    owns_group = not dist.is_initialized()
+    ctx = init_distributed(args.device)
+    device = ctx.device
+    # the data axis must divide the batch: the largest divisor that fits
+    avail = max(1, ctx.world // args.n_model)
+    n_data = max(d for d in range(1, min(avail, args.batch_size) + 1)
+                 if args.batch_size % d == 0)
+    mesh = make_mesh(n_data, args.n_model)
+    writer = ctx.rank == 0
+    if not mesh.member:
+        print(f"rank {ctx.rank}: outside the {n_data} x {args.n_model} "
+              "mesh, idle")
+        if owns_group:
+            dist.destroy_process_group()
+        return None
+    mesh_group = mesh.group("mesh")
+
+    def barrier():
+        if mesh_group is not None:
+            dist.barrier(group=mesh_group)
+
+    if writer:
+        print("options:", vars(args))
+        print(f"mesh: data={n_data}, model={args.n_model} "
+              f"(world {ctx.world}, backend {ctx.backend})")
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        dump_options(args, os.path.join(args.checkpoint_dir, "opt.txt"))
+    barrier()
 
     # ---- data ----
     datasets = []
@@ -150,7 +205,8 @@ def main(argv=None):
     steps = args.max_steps or (total * args.epoch) // args.batch_size
     loader = PrefetchLoader(datasets, args.batch_size, steps,
                             workers=args.workers, seed=args.seed)
-    print(f"dataset: {total} pairs, {steps} steps")
+    if writer:
+        print(f"dataset: {total} pairs, {steps} steps")
 
     # ---- weights / state ----
     def load(path):
@@ -160,7 +216,8 @@ def main(argv=None):
         vgg_sd = load(args.vgg_ckpt)
         vgg_source = f"torch:{os.path.basename(args.vgg_ckpt)}"
     else:
-        print(f"WARNING: {args.vgg_ckpt} missing; random VGG weights")
+        if writer:
+            print(f"WARNING: {args.vgg_ckpt} missing; random VGG weights")
         vgg_sd = vgg19_state_dict(host_train_vgg_init())
         vgg_source = RANDOM_VGG_SOURCE
     vgg = frozen_vgg_from_state_dict(vgg_sd, device)
@@ -193,13 +250,20 @@ def main(argv=None):
                     f"--allow_vgg_mismatch to override (this rewrites the "
                     f"recorded provenance)."
                 )
-            save_run_metadata(args.checkpoint_dir, {"vgg_source": vgg_source})
-        elif prev_meta is None:
-            save_run_metadata(args.checkpoint_dir, {"vgg_source": vgg_source})
+            rewrite_meta = True
+        else:
+            rewrite_meta = prev_meta is None
         state = ckpt.restore(state)
-        print(f"resumed at step {int(state.step)}")
+        if writer:
+            print(f"resumed at step {int(state.step)}")
     else:
+        rewrite_meta = True
+    if writer and rewrite_meta:
         save_run_metadata(args.checkpoint_dir, {"vgg_source": vgg_source})
+    # every rank starts from rank 0's weights (they are equal already:
+    # the same seed or the same checkpoint)
+    shard_params(mesh, [state.params_g, state.params_d, state.sn_state, vgg])
+    barrier()
 
     cfg = loop.TrainConfig(
         weight_l1=args.weight_l1,
@@ -215,12 +279,25 @@ def main(argv=None):
         domain_invariant=args.domain_invariant,
         contextual_direction=args.contextual_loss_direction,
     )
-    step_fn = loop.make_train_step(tx_g, tx_d, vgg, cfg,
-                                   device_preprocess=args.device_preprocess)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
+    if mesh.group("data") is None:
+        step_fn = loop.make_train_step(
+            tx_g, tx_d, vgg, cfg, device_preprocess=args.device_preprocess)
+    else:
+        # with a process group the step is the explicit-SPMD one, its
+        # gradient averages bucketed unless --spmd_step off
+        bucket = args.spmd_step != "off"
+        step_fn = loop.make_train_step_spmd(
+            mesh, tx_g, tx_d, vgg, cfg,
+            device_preprocess=args.device_preprocess, bucket=bucket)
+        if writer:
+            print(f"spmd step: {'one all_reduce a network' if bucket else 'one all_reduce a tensor'}")
+    generator = torch.Generator(device=device).manual_seed(
+        loop.noise_seed(args.seed, mesh.index("data")))
 
-    logger = MetricsLogger(args.log_dir)
-    if args.device_preprocess:
+    logger = MetricsLogger(args.log_dir) if writer else None
+    if not writer:
+        img_logger = None
+    elif args.device_preprocess:
         # the logged uint8 batch goes to Lab in the logger's thread (with
         # the brightness jitter), never in the train loop
         from devc_tpu_torch.data.transforms import lab_to_network, rgb_to_lab_np
@@ -243,6 +320,10 @@ def main(argv=None):
             return t.pin_memory().to(device, non_blocking=True)
         return t.to(device)
 
+    launches = lambda: [cuda_corr.corr_fwd.launches,
+                        cuda_corr.corr_bwd_dq.launches,
+                        cuda_corr.corr_bwd_dkv.launches]
+    launches_before = launches()
     timer, wait_timer = StepTimer(), StepTimer()
     step_s, wait_s = [], []
     first_step = state.step
@@ -255,12 +336,15 @@ def main(argv=None):
             break
         wait_s.append(wait_timer.toc())
         timer.tic()
-        batch = {k: to_device(v) for k, v in batch_np.items()}
+        batch = {k: to_device(v)
+                 for k, v in shard_batch(mesh, batch_np).items()}
         state, metrics = step_fn(state, batch, generator)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         step = int(state.step)
         step_s.append(timer.toc())
+        if not writer:
+            continue
 
         if step % args.print_step == 0:
             m = {k: float(v) for k, v in metrics.items()}
@@ -282,23 +366,33 @@ def main(argv=None):
         ckpt.save(step, state)
     wall = time.perf_counter() - t_start
 
-    if ckpt.latest_step() != int(state.step):
-        ckpt.save(int(state.step), state, force=True)
-    img_logger.close()
-    logger.close()
+    if writer:
+        if ckpt.latest_step() != int(state.step):
+            ckpt.save(int(state.step), state, force=True)
+        img_logger.close()
+        logger.close()
+    barrier()  # the others wait for rank 0's last checkpoint
     summary = {
         "steps": len(step_s), "first_step": first_step + 1,
         "last_step": int(state.step), "wall_s": wall,
         "step_s": step_s, "loader_wait_s": wait_s,
         "step_ms_ema": None if timer.avg is None else timer.avg * 1e3,
         "loader_wait_share": sum(wait_s) / wall if wall > 0 else 0.0,
-        "device": str(device)}
-    print(f"loader wait {sum(wait_s):.2f} s of {wall:.2f} s wall "
-          f"({summary['loader_wait_share']:.1%})")
+        "device": str(device), "rank": ctx.rank, "world": ctx.world,
+        "backend": ctx.backend, "mesh": list(mesh.shape),
+        "batch_per_rank": args.batch_size // n_data,
+        "launches_corr_fwd_dq_dkv": [
+            a - b for a, b in zip(launches(), launches_before)]}
+    if writer:
+        print(f"loader wait {sum(wait_s):.2f} s of {wall:.2f} s wall "
+              f"({summary['loader_wait_share']:.1%})")
     print(json.dumps({"train_summary": {k: v for k, v in summary.items()
                                         if k not in ("step_s",
                                                      "loader_wait_s")}}))
-    print("training done")
+    if writer:
+        print("training done")
+    if owns_group and dist.is_initialized():
+        dist.destroy_process_group()
     return summary
 
 

@@ -134,16 +134,36 @@ def embed_keys(model: WarpNet, b_lab, b_feats):
 
 
 def warp_with_keys(theta, phi, values, out_hw, temperature: float = 0.005,
-                   differentiable: bool = False, out_dtype=None):
+                   differentiable: bool = False, out_dtype=None,
+                   corr_sharding=None):
     """Correspondence, then nearest x4 up to out_hw. Returns NHWC
     warped Lab [B, H, W, 3] and similarity [B, H, W, 1], cast to
     out_dtype (the network's dtype, bf16 under --bf16; None keeps the
     correspondence's dtypes). differentiable: the correspondence may be
-    differentiated (on the card: K1 with the backward kernels K2b/K3)."""
+    differentiated (on the card: K1 with the backward kernels K2b/K3).
+
+    corr_sharding: optional (mesh, axis, kind), kind "rows" or "keys": the
+    correspondence split over the mesh axis's ranks
+    (parallel/sharded_corr.py; rows: query rows, no collective but the
+    gather; keys: the exact combine of each rank's softmax over its
+    keys). Inference only, as in devc_tpu."""
     b = theta.shape[0]
     fh, fw = out_hw[0] // 4, out_hw[1] // 4
-    warped, sim = correspondence_warp(theta, phi, values, temperature,
-                                      differentiable=differentiable)
+    if corr_sharding is not None:
+        if differentiable:
+            raise ValueError("the sharded correspondence is inference only")
+        from devc_tpu_torch.parallel.sharded_corr import (
+            correspondence_warp_key_sharded,
+            correspondence_warp_sharded,
+        )
+
+        mesh, axis, kind = corr_sharding
+        fn = {"rows": correspondence_warp_sharded,
+              "keys": correspondence_warp_key_sharded}[kind]
+        warped, sim = fn(theta, phi, values, mesh, temperature, axis)
+    else:
+        warped, sim = correspondence_warp(theta, phi, values, temperature,
+                                          differentiable=differentiable)
     warped = warped.reshape(b, fh, fw, 3).permute(0, 3, 1, 2)
     sim = sim.reshape(b, fh, fw, 1).permute(0, 3, 1, 2)
     warped = upsample_nearest(warped, 4).permute(0, 2, 3, 1)

@@ -104,13 +104,15 @@ def query_embedding(models, a_l):
 
 
 def warp_color(models, a_l, ref_state, temperature: float = 0.01,
-               differentiable: bool = False):
+               differentiable: bool = False, corr_sharding=None):
     """Warp the exemplar's colour onto the gray frame.
 
     a_l: [B, H, W, 1] centered luminance. ref_state: either form above.
     The frame's VGG features carry no gradient (a frozen extractor, as
     devc_tpu's stop_gradient). differentiable: the correspondence may be
-    differentiated (training).
+    differentiated (training). corr_sharding: (mesh, axis, kind), the
+    correspondence split over ranks (`warp_with_keys`); it takes the
+    first form of ref_state, as devc_tpu's ref_embedding route.
     Returns (warped_lab [B, H, W, 3], similarity [B, H, W, 1]).
     """
     hw = (a_l.shape[1], a_l.shape[2])
@@ -118,7 +120,11 @@ def warp_color(models, a_l, ref_state, temperature: float = 0.01,
         theta = query_embedding(models, a_l)
         return warp_with_keys(theta, ref_state["phi"], ref_state["values"],
                               hw, temperature, differentiable,
-                              out_dtype=a_l.dtype)
+                              out_dtype=a_l.dtype,
+                              corr_sharding=corr_sharding)
+    if corr_sharding is not None:
+        raise ValueError("corr_sharding needs the prepared exemplar state "
+                         "{'phi', 'values'}")
     b_n = [cs.feature_normalize(f.detach()) for f in ref_state["features"][1:]]
     return warpnet_apply(models.warpnet, ref_state["lab"],
                          _frame_features(models, a_l), b_n,
@@ -128,7 +134,7 @@ def warp_color(models, a_l, ref_state, temperature: float = 0.01,
 def frame_colorization(models, a_lab, a_last_lab, ref_state,
                        temperature: float = 0.01, noise=None,
                        luminance_noise: float = 0.0,
-                       joint_training: bool = True):
+                       joint_training: bool = True, corr_sharding=None):
     """Colourise one frame.
 
     a_lab: [B, H, W, 3] frame network-Lab (only L is used); a_last_lab: the
@@ -138,6 +144,7 @@ def frame_colorization(models, a_lab, a_last_lab, ref_state,
     recomputed forward (activation checkpointing) sees the same noise.
     joint_training: when False the warp branch is cut from the graph
     (devc_tpu's stop_gradient; the correspondence then runs without grad).
+    corr_sharding: see `warp_color` (inference: joint_training False).
     Returns (pred_ab [B, H, W, 2], warped_lab, similarity).
     """
     a_l = a_lab[..., 0:1]
@@ -145,11 +152,13 @@ def frame_colorization(models, a_lab, a_last_lab, ref_state,
         a_l = a_l + noise * luminance_noise
     if joint_training:
         warped_lab, similarity = warp_color(models, a_l, ref_state,
-                                            temperature, differentiable=True)
+                                            temperature, differentiable=True,
+                                            corr_sharding=corr_sharding)
     else:
         with torch.no_grad():
             warped_lab, similarity = warp_color(models, a_l, ref_state,
-                                                temperature)
+                                                temperature,
+                                                corr_sharding=corr_sharding)
     color_input = torch.cat(
         [a_l, warped_lab[..., 1:3], similarity, a_last_lab], dim=-1)
     pred_ab = colorvidnet_apply(models.colorvid, color_input)

@@ -229,13 +229,14 @@ def _plan_on(resize_plan, device):
 @torch.inference_mode()
 def step_body(models: PipelineModels, frames_u8, last_lab, ref_state,
               temperature: float = 1e-10, wls: bool = True,
-              compute_dtype=None):
+              compute_dtype=None, corr_sharding=None):
     """One step over B frames on the device, each with its own carry and
     exemplar row: uint8 [B, H, W, 3] -> (uint8 RGB [B, H, W, 3], new
     carry [B, H/2, W/2, 3] = [L, predicted ab]). One K1 launch at batch B
     and six K2 launches, one per smoother pass, each with a guide per
     frame. compute_dtype: the networks' dtype (module docstring); the
-    carry stays fp32."""
+    carry stays fp32. corr_sharding: (mesh, axis, kind), the
+    correspondence split over ranks (`frame_colorization`)."""
     use_full_fp32()
     lab_large, lab_small = _preprocess_batch(frames_u8)
     net_in, net_last = lab_small, last_lab
@@ -243,7 +244,8 @@ def step_body(models: PipelineModels, frames_u8, last_lab, ref_state,
         net_in, net_last = (lab_small.to(compute_dtype),
                             last_lab.to(compute_dtype))
     pred_ab = frame_colorization(models, net_in, net_last, ref_state,
-                                 temperature)[0].float()
+                                 temperature, joint_training=False,
+                                 corr_sharding=corr_sharding)[0].float()
     new_last = torch.cat([lab_small[..., 0:1], pred_ab], dim=-1)
     return _postprocess(lab_large, pred_ab, wls), new_last
 

@@ -1,5 +1,5 @@
 """The GAN training step (mirrors devc_tpu/train/loop.py; reference
-train.py:535-736), on one device.
+train.py:535-736), on one device or data-parallel over ranks.
 
 One step:
   1. the exemplar's VGG taps (frozen extractor, no gradient);
@@ -25,8 +25,21 @@ from sn_after and its updates are dropped; the new state keeps sn_after.
 Randomness (the luminance noise) is drawn before the checkpointed frames
 and passed in, so the recomputed forward sees the same values.
 
-The single-device step only: devc_tpu's explicit-SPMD variant
-(make_train_step_spmd) is not ported.
+Data-parallel over ranks (`make_train_step_spmd`, devc_tpu's explicit-SPMD
+step): each rank runs this step on its block of the global batch with
+`group`, the mesh's "data" process group. The couplings across the batch
+become collectives, as in devc_tpu's shard_map step: the real-pair roll
+(`_global_roll1`), the self-reference count, the RaLSGAN means
+(losses._batch_mean, through a psum whose backward sums over the ranks);
+the critic's and the generator's gradients are then averaged over the
+ranks, each with one flat all_reduce (`_pmean`, devc_tpu's
+_pmean_bucketed), and the metrics with one more. The step takes its
+gradients with torch.autograd.grad and applies FlatAdam itself, so
+DistributedDataParallel, whose hooks fire on .backward(), does not fit
+it. bucket=False keeps the same collectives with one all_reduce per
+gradient tensor (GSPMD's form, devc_tpu's --spmd_step off). Each rank
+draws its own luminance noise (a generator per rank, seeded by
+`noise_seed`, devc_tpu's fold_in of the axis index).
 """
 
 from __future__ import annotations
@@ -42,6 +55,13 @@ from torch.utils.checkpoint import checkpoint
 from devc_tpu_torch import colorspace as cs
 from devc_tpu_torch.models.discriminator import discriminator_apply
 from devc_tpu_torch.models.vgg19 import vgg19_extract
+from devc_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather,
+    all_reduce,
+    axis_index,
+    axis_size,
+)
 from devc_tpu_torch.pipeline.frame import FEATURE_TAPS, frame_colorization
 from devc_tpu_torch.train import losses as L
 from devc_tpu_torch.train.state import TrainState, apply_updates, param_groups
@@ -101,20 +121,52 @@ def _two_frame_unroll(models, batch, features_b, noise, cfg: TrainConfig):
     return cur_ab, last_ab, cur_nl, last_nl
 
 
-def _gan_pairs(batch, cur_ab, last_ab, permute: bool):
+def _global_roll1(x, group=None):
+    """torch.roll(x, 1, dims=0) over the GLOBAL batch split over the ranks
+    of `group`: each rank's first row becomes the previous rank's last
+    one. One all_gather of every rank's last row (not send / recv, so that
+    one code path runs on NCCL and on gloo)."""
+    if group is None:
+        return torch.roll(x, shifts=1, dims=0)
+    lasts = all_gather(x[-1:], group)
+    i, n = axis_index(group), axis_size(group)
+    return torch.cat([lasts[(i - 1) % n:(i - 1) % n + 1], x[:-1]], dim=0)
+
+
+def _gan_pairs(batch, cur_ab, last_ab, permute: bool, group=None):
     """6-channel (current, last) Lab pairs with uncentered L
-    (reference train.py:582-589); the real batch rolled by one."""
+    (reference train.py:582-589); the real batch rolled by one over the
+    global batch."""
     cur_l = cs.uncenter_l(batch["current_lab"][..., 0:1])
     last_l = cs.uncenter_l(batch["last_lab"][..., 0:1])
     fake = torch.cat([cur_l, cur_ab, last_l, last_ab], dim=-1)
     real = torch.cat([cur_l, batch["current_lab"][..., 1:3], last_l,
                       batch["last_lab"][..., 1:3]], dim=-1)
     if permute:
-        real = torch.roll(real, shifts=1, dims=0)
+        real = _global_roll1(real, group)
     return fake, real
 
 
-def _g_loss(batch, outs, features_b, vgg, params_d, sn, cfg: TrainConfig):
+def _pmean(tensors, group, bucket: bool = True):
+    """The tensors averaged over the ranks of `group`. bucket: one
+    all_reduce of all of them flattened into one vector, in fp32 (float64
+    when they are), devc_tpu's _pmean_bucketed; else one all_reduce per
+    tensor (GSPMD's form)."""
+    n = axis_size(group)
+    if not bucket:
+        return [all_reduce(t, "sum", group) / n for t in tensors]
+    dt = torch.promote_types(tensors[0].dtype, torch.float32)
+    flat = all_reduce(torch.cat([t.reshape(-1).to(dt) for t in tensors]),
+                      "sum", group) / n
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off:off + t.numel()].view_as(t).to(t.dtype))
+        off += t.numel()
+    return out
+
+
+def _g_loss(batch, outs, features_b, vgg, params_d, sn, cfg: TrainConfig,
+            group=None):
     """The generator's weighted loss over the unroll's outputs, against
     the updated critic. Returns (total, metrics)."""
     cur_ab, last_ab, cur_nl, last_nl = outs
@@ -130,17 +182,21 @@ def _g_loss(batch, outs, features_b, vgg, params_d, sn, cfg: TrainConfig):
         else:
             pred_feats = _grad_vgg_feats(vgg, cur_lab_pred)
 
-    # weighted L1 on self-reference samples (reference :621-623)
+    # weighted L1 on self-reference samples (reference :621-623); the
+    # normaliser is the global batch's self-reference count
     flag = batch["self_ref_flag"]  # [B, 1], 1 = self-reference
-    w = flag[:, :, None, None] / (flag[:, 0].sum() + 1e-5)
+    w = flag[:, :, None, None] / (all_reduce(flag[:, 0].sum(), "sum", group)
+                                  + 1e-5)
     metrics["l1_loss"] = L.weighted_l1(
         cur_ab, batch["current_lab"][..., 1:3], w) * cfg.weight_l1
 
     if cfg.weight_gan > 0:
-        fake, real = _gan_pairs(batch, cur_ab, last_ab, cfg.permute_data)
+        fake, real = _gan_pairs(batch, cur_ab, last_ab, cfg.permute_data,
+                                group)
         fl, _, sn1 = discriminator_apply(params_d, sn, fake)
         rl, _, _ = discriminator_apply(params_d, sn1, real)
-        metrics["generator_loss"] = L.ralsgan_g_loss(rl, fl) * cfg.weight_gan
+        metrics["generator_loss"] = L.ralsgan_g_loss(rl, fl, group) * \
+            cfg.weight_gan
     else:
         metrics["generator_loss"] = zero
 
@@ -190,13 +246,19 @@ def draw_noise(batch, generator=None):
 
 
 def train_step(state: TrainState, batch, tx_g, tx_d, vgg,
-               cfg: TrainConfig = TrainConfig(), generator=None):
+               cfg: TrainConfig = TrainConfig(), generator=None, group=None,
+               bucket: bool = True):
     """One optimisation step. batch: dict of NHWC tensors on one device:
     last_lab, current_lab, ref_lab, placeholder_lab [B, H, W, 3];
     flow_forward [B, H, W, 2]; mask [B, H, W, 1]; self_ref_flag [B, 1].
     The luminance noise comes from `generator` (a torch.Generator on the
     batch's device, or the default one). Updates the modules in place;
-    returns (new_state, metrics), metrics as 0-d tensors."""
+    returns (new_state, metrics), metrics as 0-d tensors.
+
+    group: None, one process on the whole batch; else the process group
+    over whose ranks the global batch is split, this rank holding its
+    block (module docstring): the gradients and metrics come back
+    averaged over the ranks, the same on each. bucket: see `_pmean`."""
     models = types.SimpleNamespace(vgg=vgg, warpnet=state.params_g["warpnet"],
                                    colorvid=state.params_g["colorvid"])
     features_b = _vgg_feats(vgg, batch["ref_lab"])
@@ -209,15 +271,17 @@ def train_step(state: TrainState, batch, tx_g, tx_d, vgg,
         # critic update on the detached fake (reference :591-601)
         if cfg.weight_gan > 0:
             fake, real = _gan_pairs(batch, cur_ab.detach(), last_ab.detach(),
-                                    cfg.permute_data)
+                                    cfg.permute_data, group)
             fl, _, sn1 = discriminator_apply(state.params_d, state.sn_state,
                                              fake)
             rl, _, sn_after = discriminator_apply(state.params_d, sn1, real)
-            d_loss = L.ralsgan_d_loss(rl, fl)
+            d_loss = L.ralsgan_d_loss(rl, fl, group)
             d_params = param_groups(state.params_d)
-            d_grads = torch.autograd.grad(d_loss, d_params[""],
-                                          materialize_grads=True)
-            d_updates, opt_state_d = tx_d.update({"": list(d_grads)},
+            d_grads = list(torch.autograd.grad(d_loss, d_params[""],
+                                               materialize_grads=True))
+            if group is not None:
+                d_grads = _pmean(d_grads, group, bucket)
+            d_updates, opt_state_d = tx_d.update({"": d_grads},
                                                  state.opt_state_d)
             apply_updates(state.params_d, d_updates)
         else:
@@ -226,17 +290,26 @@ def train_step(state: TrainState, batch, tx_g, tx_d, vgg,
 
         # generator update through the same unroll graph
         g_total, metrics = _g_loss(batch, outs, features_b, vgg,
-                                   state.params_d, sn_after, cfg)
+                                   state.params_d, sn_after, cfg, group)
         g_params = param_groups(state.params_g)
         flat = [p for ps in g_params.values() for p in ps]
-        grads = iter(torch.autograd.grad(g_total, flat,
+        grads = list(torch.autograd.grad(g_total, flat,
                                          materialize_grads=True))
-        g_grads = {k: [next(grads) for _ in ps] for k, ps in g_params.items()}
+    if group is not None:
+        grads = _pmean(grads, group, bucket)
+    grads = iter(grads)
+    g_grads = {k: [next(grads) for _ in ps] for k, ps in g_params.items()}
     g_updates, opt_state_g = tx_g.update(g_grads, state.opt_state_g)
     apply_updates(state.params_g, g_updates)
 
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["discriminator_loss"] = d_loss.detach()
+    if group is not None:
+        # the global means (equal blocks: the mean of the ranks' means),
+        # one collective
+        names = list(metrics)
+        metrics = dict(zip(names, _pmean(
+            [metrics[k].reshape(()) for k in names], group, bucket=True)))
     new_state = dataclasses.replace(
         state, step=state.step + 1, sn_state=sn_after,
         opt_state_g=opt_state_g, opt_state_d=opt_state_d)
@@ -269,10 +342,11 @@ def preprocess_batch_u8(batch_u8):
 
 
 def train_step_u8(state, batch_u8, tx_g, tx_d, vgg,
-                  cfg: TrainConfig = TrainConfig(), generator=None):
+                  cfg: TrainConfig = TrainConfig(), generator=None,
+                  group=None, bucket: bool = True):
     """train_step on the uint8 loader batch (preprocess_batch_u8 first)."""
     return train_step(state, preprocess_batch_u8(batch_u8), tx_g, tx_d, vgg,
-                      cfg, generator)
+                      cfg, generator, group, bucket)
 
 
 def make_train_step(tx_g, tx_d, vgg, cfg: TrainConfig = TrainConfig(),
@@ -285,3 +359,36 @@ def make_train_step(tx_g, tx_d, vgg, cfg: TrainConfig = TrainConfig(),
         return step(state, batch, tx_g, tx_d, vgg, cfg, generator)
 
     return fn
+
+
+def make_train_step_spmd(mesh: Mesh, tx_g, tx_d, vgg,
+                         cfg: TrainConfig = TrainConfig(),
+                         device_preprocess: bool = False, axis: str = "data",
+                         bucket: bool = True):
+    """The data-parallel step over the mesh's `axis` (devc_tpu's
+    make_train_step_spmd): (state, batch, generator=None) -> (state,
+    metrics), where batch is this rank's block of the global batch
+    (mesh.shard_batch), state is the same on every rank (mesh.shard_params)
+    and stays so, and metrics are the global batch's. bucket=False: one
+    all_reduce per gradient tensor."""
+    step = train_step_u8 if device_preprocess else train_step
+    group = mesh.group(axis)
+
+    def fn(state, batch, generator=None):
+        return step(state, batch, tx_g, tx_d, vgg, cfg, generator, group,
+                    bucket)
+
+    return fn
+
+
+def noise_seed(seed: int, index: int) -> int:
+    """The luminance-noise seed of data rank `index`: `seed` itself for
+    rank 0 (so that one rank draws what a one-process run draws), a seed
+    of its own for every other rank (devc_tpu folds the axis index into
+    its key)."""
+    if index == 0:
+        return seed
+    import numpy as np
+
+    return int(np.random.SeedSequence([seed, index]).generate_state(
+        1, np.uint64)[0] >> 1)

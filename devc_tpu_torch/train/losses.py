@@ -218,15 +218,32 @@ def consistency_loss(pred_lab_current, pred_ab_last, flow_forward, mask):
 
 
 # ---------------------------------------------------------- GAN (RaLSGAN)
-def ralsgan_d_loss(real_logits, fake_logits):
+def _batch_mean(x, group=None):
+    """Mean over the batch; over the GLOBAL batch when the batch is split
+    over the ranks of `group` (the relativistic average couples samples
+    across ranks; the reference's DataParallel gathers the logits to one
+    card, train.py:591-601, with the same global mean). Equal blocks on
+    every rank: the global mean is the sum of the ranks' means over their
+    count, through the differentiable `psum`."""
+    from devc_tpu_torch.parallel.mesh import axis_size, psum
+
+    m = x.mean()
+    if group is not None:
+        m = psum(m, group) / axis_size(group)
+    return m
+
+
+def ralsgan_d_loss(real_logits, fake_logits, group=None):
     """Relativistic average LSGAN, critic side (reference train.py:594-599)."""
-    return (torch.mean(torch.square(real_logits - fake_logits.mean() - 1.0))
-            + torch.mean(torch.square(fake_logits - real_logits.mean() + 1.0))
-            ) / 2.0
+    return (torch.mean(torch.square(
+                real_logits - _batch_mean(fake_logits, group) - 1.0))
+            + torch.mean(torch.square(
+                fake_logits - _batch_mean(real_logits, group) + 1.0))) / 2.0
 
 
-def ralsgan_g_loss(real_logits, fake_logits):
+def ralsgan_g_loss(real_logits, fake_logits, group=None):
     """Generator side (reference train.py:629-636)."""
-    return (torch.mean(torch.square(real_logits - fake_logits.mean() + 1.0))
-            + torch.mean(torch.square(fake_logits - real_logits.mean() - 1.0))
-            ) / 2.0
+    return (torch.mean(torch.square(
+                real_logits - _batch_mean(fake_logits, group) + 1.0))
+            + torch.mean(torch.square(
+                fake_logits - _batch_mean(real_logits, group) - 1.0))) / 2.0

@@ -424,8 +424,8 @@ def _parser_of(main, monkeypatch):
 
 @pytest.mark.parametrize("name", ["train", "export"])
 def test_cli_flags_and_defaults_are_devc_tpus(name, monkeypatch):
-    """Every flag keeps devc_tpu's default; cli.train swaps the mesh flags
-    (--platform, --n_model, --spmd_step) for --device."""
+    """Every flag keeps devc_tpu's default; cli.train swaps --platform for
+    --device and keeps the mesh flags (--n_model, --spmd_step)."""
     import importlib
 
     ours = _parser_of({"train": ttrain, "export": texport}[name].main,
@@ -433,7 +433,6 @@ def test_cli_flags_and_defaults_are_devc_tpus(name, monkeypatch):
     theirs = _parser_of(importlib.import_module(f"cli.{name}").main,
                         monkeypatch)
     if name == "train":
-        for mesh_flag in ("platform", "n_model", "spmd_step"):
-            del theirs[mesh_flag]
+        del theirs["platform"]
         assert ours.pop("device")[0] == "cuda"
     assert ours == theirs
