@@ -35,7 +35,7 @@ import sys
 sys.path.insert(0, ".")
 import chip_smoke as c
 from devc_tpu_torch.pipeline.frame import PipelineModels
-from devc_tpu_torch.pipeline.video import use_full_fp32
+from devc_tpu_torch.utils.convert import use_full_fp32
 from devc_tpu_torch.utils import build
 from devc_tpu_torch.utils.convert import state_dicts_from_numpy
 from devc_tpu_torch.utils.init import host_pipeline_params

@@ -178,7 +178,7 @@ def main(argv=None) -> int:
         return 1
     if "--train" in argv:
         from chip_smoke import card_line
-        from devc_tpu_torch.pipeline.video import use_full_fp32
+        from devc_tpu_torch.utils.convert import use_full_fp32
 
         use_full_fp32()
         train_probe(card_line())
@@ -190,7 +190,7 @@ def main(argv=None) -> int:
         prepare_references_batched,
     )
     from devc_tpu_torch.pipeline.frame import PipelineModels
-    from devc_tpu_torch.pipeline.video import use_full_fp32
+    from devc_tpu_torch.utils.convert import use_full_fp32
     from devc_tpu_torch.utils.convert import state_dicts_from_numpy
     from devc_tpu_torch.utils.init import host_pipeline_params
 

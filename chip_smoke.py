@@ -97,7 +97,22 @@ line {"ok": true, "device": {...}}:
                cli.colorize --train_ckpt on the 8 frames at 432x768 (K1 8,
                smooth_pass 48, chroma); the bf16 mode's quality on the
                exported checkpoint (as in phase bf16).
- 14. parallel  the parallel layer, ranks as spawned processes (any rank
+ 14. convergence  python -m devc_tpu_torch.examples.convergence_demo in
+               process on a generated scene tree (12 scenes of 3-4 stills,
+               a palette each; `write_scene_tree`): 40 steps at batch 8,
+               216x384, --holdout 2, --device-preprocess, then both
+               held-out arms (the checkpoint, random weights) through
+               cli.colorize and cli.evaluate at 224x384 on the card: exit
+               0 (total_loss fell), every loss finite, launches K1 / K2b /
+               K3 4 / 2 / 2 a step, one K1 and six K2 launches a held-out
+               frame in each arm, the summary's schema, device memory
+               after the last step within 1% of that after step 10; ms a
+               step and the loader-wait share; before it K1 at the
+               evaluation's shape (B = 1, N = 1344, T = 1e-10) and K2's
+               pass over a 224x384 frame against their plain versions,
+               with ms, plain ms, SDPA's ms and bounds. chip_convergence.py
+               runs the same demo for 1000 steps.
+ 15. parallel  the parallel layer, ranks as spawned processes (any rank
                that fails or runs late fails the phase; none is left
                running): K1 alone at the shard shapes (rows: N/2 queries;
                keys: N/2 keys with l) at N = 5184 and 20736 with ms, plain
@@ -316,6 +331,45 @@ def _k1_cases(rng, dev):
     return rows
 
 
+def _smooth_pass_case(rng, dev, h: int, w: int, axis: int, phase: str):
+    """K2's smoother pass over one h x w frame (rows: axis 1, columns:
+    axis 0) against its plain version: errors, ms, plain ms and bound."""
+    import numpy as np
+    import torch
+
+    from devc_tpu_torch.ops import fgs
+
+    src = ((rng.rand(h, w, 2) - 0.5) * 200).astype(np.float32)  # ab
+    guide = np.floor(rng.rand(h, w) * 256).astype(np.float32)  # uint8
+    guide[:, w // 2:] = np.floor(guide[:, w // 2:] / 8)  # an edge
+    src, guide = (torch.from_numpy(x).to(dev) for x in (src, guide))
+    x = fgs.smooth_pass(src, guide, FGS_LAM, fgs.SIGMA_COLOR, axis)
+    want = fgs.smooth_pass_plain(src, guide, FGS_LAM, fgs.SIGMA_COLOR, axis)
+    torch.cuda.synchronize()
+    err = (x - want).abs()
+    scale = want.abs().max().item()
+    case = {"kernel": "smooth_pass", "h": h, "w": w, "axis": axis,
+            "max_abs_err": err.max().item(),
+            "max_rel_err": err.max().item() / scale}
+    # rtol 1e-4; the atol of 1e-5 of the largest |x| covers entries that
+    # cross zero, where a relative bound means nothing
+    assert bool((err <= 1e-4 * want.abs() + 1e-5 * scale).all()), case
+    case["ms"] = cuda_ms(lambda: fgs.smooth_pass(
+        src, guide, FGS_LAM, fgs.SIGMA_COLOR, axis), queued=True)
+    case["plain_ms"] = cuda_ms(lambda: fgs.smooth_pass_plain(
+        src, guide, FGS_LAM, fgs.SIGMA_COLOR, axis), queued=True)
+    # the same launch timed with the host's cost in it
+    case["host_incl_ms"] = cuda_ms(lambda: fgs.smooth_pass(
+        src, guide, FGS_LAM, fgs.SIGMA_COLOR, axis))
+    # src and guide read once, the result written once (20 B a pixel); per
+    # pixel two weights (exp), three coefficients and the solve of two
+    # right-hand sides: about 30 FLOP
+    case.update(bound(30 * h * w, 20 * h * w))
+    case["gb_per_s"] = 20 * h * w / case["ms"] / 1e6
+    emit(phase, **case)
+    return case
+
+
 def _k2_cases(rng, dev):
     """K2's smoother pass and general solve against their plain versions;
     returns (pass summaries, solve summaries)."""
@@ -324,38 +378,8 @@ def _k2_cases(rng, dev):
 
     from devc_tpu_torch.ops import fgs
 
-    passes = []
-    for h, w, axis in K2_PASSES:
-        src = ((rng.rand(h, w, 2) - 0.5) * 200).astype(np.float32)  # ab
-        guide = np.floor(rng.rand(h, w) * 256).astype(np.float32)  # uint8
-        guide[:, w // 2:] = np.floor(guide[:, w // 2:] / 8)  # an edge
-        src, guide = (torch.from_numpy(x).to(dev) for x in (src, guide))
-        x = fgs.smooth_pass(src, guide, FGS_LAM, fgs.SIGMA_COLOR, axis)
-        want = fgs.smooth_pass_plain(src, guide, FGS_LAM, fgs.SIGMA_COLOR,
-                                     axis)
-        torch.cuda.synchronize()
-        err = (x - want).abs()
-        scale = want.abs().max().item()
-        case = {"kernel": "smooth_pass", "h": h, "w": w, "axis": axis,
-                "max_abs_err": err.max().item(),
-                "max_rel_err": err.max().item() / scale}
-        # rtol 1e-4; the atol of 1e-5 of the largest |x| covers entries
-        # that cross zero, where a relative bound means nothing
-        assert bool((err <= 1e-4 * want.abs() + 1e-5 * scale).all()), case
-        case["ms"] = cuda_ms(lambda: fgs.smooth_pass(
-            src, guide, FGS_LAM, fgs.SIGMA_COLOR, axis), queued=True)
-        case["plain_ms"] = cuda_ms(lambda: fgs.smooth_pass_plain(
-            src, guide, FGS_LAM, fgs.SIGMA_COLOR, axis), queued=True)
-        # the same launch timed with the host's cost in it
-        case["host_incl_ms"] = cuda_ms(lambda: fgs.smooth_pass(
-            src, guide, FGS_LAM, fgs.SIGMA_COLOR, axis))
-        # src and guide read once, the result written once (20 B a pixel);
-        # per pixel two weights (exp), three coefficients and the solve of
-        # two right-hand sides: about 30 FLOP
-        case.update(bound(30 * h * w, 20 * h * w))
-        case["gb_per_s"] = 20 * h * w / case["ms"] / 1e6
-        emit("kernels", **case)
-        passes.append(case)
+    passes = [_smooth_pass_case(rng, dev, h, w, axis, "kernels")
+              for h, w, axis in K2_PASSES]
 
     solves = []
     for length, n_sys in K2_SHAPES:
@@ -889,8 +913,6 @@ def _serve_kernels(rng, dev):
     import torch
 
     from devc_tpu_torch.ops import fgs
-    from devc_tpu_torch.ops.correspondence import correspondence_warp_einsum
-    from devc_tpu_torch.ops.cuda_corr import corr_fwd
 
     k2 = []
     for b, shared in K2_BATCHED:
@@ -932,38 +954,50 @@ def _serve_kernels(rng, dev):
             case.update(bound(30 * b * H * W, nbytes))
             emit("serve", **case)
             k2.append(case)
-    k1 = []
-    n = K1_SIZES[0]
-    for b, shared in K1_SERVE:
-        theta, phi, values = _k1_inputs(rng, b, n, dev)
-        if shared:
-            theta = theta[:1].expand(b, n, 256).contiguous()
-        out, sim, _ = corr_fwd(theta, phi, values, 1e-10)
-        want_out, want_sim = correspondence_warp_einsum(theta, phi, values,
-                                                        1e-10)
-        torch.cuda.synchronize()
-        sim_err = (sim - want_sim).abs().max().item()
-        differing = int(((out - want_out).abs().amax(dim=-1) > 1e-4).sum())
-        case = {"check": "k1_batched", "kernel": "corr_fwd", "b": b, "n": n,
-                "c": 256, "temperature": 1e-10,
-                "theta": "one frame's, repeated" if shared else "per slot",
-                "sim_max_abs_err": sim_err, "rows_differing": differing,
-                "max_abs_err": sim_err}
-        assert sim_err <= 1e-5 and differing == 0, case
-        case["ms"] = cuda_ms(lambda: corr_fwd(theta, phi, values, 1e-10),
-                             queued=True)
-        case["plain_ms"] = cuda_ms(lambda: correspondence_warp_einsum(
-            theta, phi, values, 1e-10), queued=True)
-        case["library_ms"], case["library_call"] = sdpa_ms(
-            theta, phi, values, 1e-10)
-        flop = 2 * b * n * n * 259
-        case.update(bound(flop, 4 * b * n * (2 * 256 + 3 + 5)))
-        case["gflop_per_s"] = flop / case["ms"] / 1e6
-        emit("serve", **case)
-        k1.append(case)
-        del theta, phi, values, out, sim, want_out, want_sim
-        torch.cuda.empty_cache()
+    k1 = [_k1_inference_case(rng, dev, b, K1_SIZES[0], shared, "serve",
+                             "k1_batched") for b, shared in K1_SERVE]
     return k2, k1
+
+
+def _k1_inference_case(rng, dev, b: int, n: int, shared: bool, phase: str,
+                       check: str):
+    """K1 at T = 1e-10 (inference) on [b, n, 256] against its plain
+    version: sim within 1e-5, every row's out equal; ms, plain ms, SDPA's
+    ms and the bound. shared: theta one frame's, repeated over b."""
+    import torch
+
+    from devc_tpu_torch.ops.correspondence import correspondence_warp_einsum
+    from devc_tpu_torch.ops.cuda_corr import corr_fwd
+
+    theta, phi, values = _k1_inputs(rng, b, n, dev)
+    if shared:
+        theta = theta[:1].expand(b, n, 256).contiguous()
+    out, sim, _ = corr_fwd(theta, phi, values, 1e-10)
+    want_out, want_sim = correspondence_warp_einsum(theta, phi, values,
+                                                    1e-10)
+    torch.cuda.synchronize()
+    sim_err = (sim - want_sim).abs().max().item()
+    differing = int(((out - want_out).abs().amax(dim=-1) > 1e-4).sum())
+    case = {"check": check, "kernel": "corr_fwd", "b": b, "n": n,
+            "c": 256, "temperature": 1e-10,
+            "theta": "one frame's, repeated" if shared else "per sample",
+            "sim_max_abs_err": sim_err, "rows_differing": differing,
+            "max_abs_err": sim_err}
+    assert sim_err <= 1e-5 and differing == 0, case
+    case["ms"] = cuda_ms(lambda: corr_fwd(theta, phi, values, 1e-10),
+                         queued=True)
+    case["plain_ms"] = cuda_ms(lambda: correspondence_warp_einsum(
+        theta, phi, values, 1e-10), queued=True)
+    case["library_ms"], case["library_call"] = sdpa_ms(
+        theta, phi, values, 1e-10)
+    flop = 2 * b * n * n * 259
+    # theta, phi, values read once, out and sim written once
+    case.update(bound(flop, 4 * b * n * (2 * 256 + 3 + 4)))
+    case["gflop_per_s"] = flop / case["ms"] / 1e6
+    emit(phase, **case)
+    del theta, phi, values, out, sim, want_out, want_sim
+    torch.cuda.empty_cache()
+    return case
 
 
 def _counts_zero():
@@ -2086,6 +2120,232 @@ def phase_cli_train(frames, ref, seed: int, card: str):
     return launches, col_launches, bf16_launches
 
 
+# the convergence demo (python -m devc_tpu_torch.examples.convergence_demo)
+# on a generated scene tree: CONV_SCENES folders of stills, the last
+# CONV_HOLDOUT held out; its training at batch 8, 216x384 (N = 5184), its
+# held-out evaluation at 224x384 (216 rounded up to H % 16): K1 at N =
+# (224 / 8) * (384 / 8) = 1344, T = 1e-10, K2 over one 224x384 frame
+CONV_SCENES, CONV_HOLDOUT = 12, 2
+CONV_STEPS, CONV_BATCH = 40, 8
+# the step whose allocated memory the last step's is held to (within 1%)
+CONV_MEM_FROM = 10
+CONV_EVAL_HW = (224, 384)
+CONV_EVAL_N = (CONV_EVAL_HW[0] // 8) * (CONV_EVAL_HW[1] // 8)
+CONV_LOSSES = ("total_loss", "l1_loss", "generator_loss",
+               "discriminator_loss", "feat_loss", "contextual_loss_total",
+               "smoothness_loss", "consistent_loss")
+CONV_ARM_KEYS = ["psnr_mean", "scenes", "ssim_mean", "temporal_rmse"]
+
+
+def write_scene_tree(root: str, seed: int) -> None:
+    """The convergence demo's source tree: CONV_SCENES scene folders of
+    3-4 textured colour stills (JPEG, one size a scene, 256-560 px a
+    side), each scene in a palette of its own (the field's channels
+    scaled and shifted per scene), so a scene's exemplar carries its
+    other stills' colours."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    for s in range(CONV_SCENES):
+        d = os.path.join(root, f"scene{s:02d}")
+        os.makedirs(d)
+        n = int(rng.randint(3, 5))
+        hw = (int(rng.randint(256, 561)), int(rng.randint(256, 561)))
+        scale, shift = rng.uniform(0.3, 1.0, 3), rng.uniform(0.0, 90.0, 3)
+        for i, img in enumerate(textured_frames(int(rng.randint(1 << 30)),
+                                                n, hw)):
+            img = np.clip(img * scale + shift, 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(d, f"{i:02d}.jpg"),
+                                      quality=95)
+
+
+def _all_counts() -> dict:
+    from devc_tpu_torch.ops import cuda_corr
+
+    return dict(_counts(), **_train_counts(),
+                corr_fwd_bf16=cuda_corr.corr_fwd.bf16_launches)
+
+
+def run_convergence_demo(workdir: str, src: str, steps: int, batch: int,
+                         holdout: int, summary_out: str,
+                         workers: int = 4) -> dict:
+    """python -m devc_tpu_torch.examples.convergence_demo on the card, in
+    this process, with --device-preprocess, instrumented from outside:
+    cli.train's summary (seconds a step, loader wait) and launches, the
+    device memory allocated after each step (read where the trainer logs
+    the step, after its sync), and each cli.colorize call's frames and
+    launches. The counts are set to 0 first. Returns the record, with the
+    demo's exit code, summary and metrics.jsonl."""
+    import torch
+
+    from devc_tpu_torch.cli import colorize as cli_colorize
+    from devc_tpu_torch.cli import train as cli_train
+    from devc_tpu_torch.examples import convergence_demo
+    from devc_tpu_torch.utils import logging as run_logging
+
+    rec = {"allocated_mib": {}, "colorize": []}
+    real_train, real_colorize = cli_train.main, cli_colorize.main
+    real_log = run_logging.MetricsLogger.log_scalars
+    delta = lambda a, b: {k: a[k] - b[k] for k in a}
+
+    def log_scalars(self, step, scalars):
+        rec["allocated_mib"][int(step)] = torch.cuda.memory_allocated() / 2**20
+        return real_log(self, step, scalars)
+
+    def train(argv):
+        before = _all_counts()
+        rec["train"] = real_train(argv)
+        rec["train_launches"] = delta(_all_counts(), before)
+        return rec["train"]
+
+    def colorize(argv):
+        clip = argv[argv.index("--clip_path") + 1]
+        before, t0 = _all_counts(), time.perf_counter()
+        real_colorize(argv)
+        torch.cuda.synchronize()
+        rec["colorize"].append({
+            "arm": "trained" if "--train_ckpt" in argv else "random_init",
+            "scene": os.path.basename(os.path.dirname(clip)),
+            "frames": len(os.listdir(clip)),
+            "launches": delta(_all_counts(), before),
+            "wall_s": time.perf_counter() - t0})
+
+    _counts_zero()
+    _train_counts_zero()
+    cli_train.main, cli_colorize.main = train, colorize
+    run_logging.MetricsLogger.log_scalars = log_scalars
+    t0 = time.perf_counter()
+    try:
+        rec["rc"] = convergence_demo.main([
+            "--src", src, "--workdir", workdir, "--steps", str(steps),
+            "--batch", str(batch), "--image-size", str(TRAIN_HW[0]),
+            str(TRAIN_HW[1]), "--holdout", str(holdout),
+            "--workers", str(workers), "--device-preprocess",
+            "--device", "cuda", "--summary-out", summary_out])
+        torch.cuda.synchronize()
+    finally:
+        cli_train.main, cli_colorize.main = real_train, real_colorize
+        run_logging.MetricsLogger.log_scalars = real_log
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = _all_counts()
+    with open(summary_out) as f:
+        rec["summary"] = json.load(f)
+    with open(os.path.join(workdir, "runs", "metrics.jsonl")) as f:
+        rec["metrics"] = [json.loads(line) for line in f]
+    return rec
+
+
+def convergence_report(rec: dict, steps: int, mem_from: int) -> dict:
+    """The run's numbers and the checks on them: exit code 0 (total_loss
+    fell), every logged loss finite, K1 / K2b / K3 launched 4 / 2 / 2 times
+    a step in training, one K1 and six K2 launches a held-out frame in
+    each arm, the summary schema, and the device memory allocated after
+    the last step within 1% of that after step mem_from. A failed check
+    raises AssertionError."""
+    import numpy as np
+
+    train = rec["train"]
+    step_ms = [s * 1e3 for s in train["step_s"]]
+    mem = rec["allocated_mib"]
+    last = max(mem)
+    report = {
+        "rc": rec["rc"], "steps": train["steps"], "wall_s": rec["wall_s"],
+        "train_wall_s": train["wall_s"],
+        "median_step_ms_after_first": float(np.median(step_ms[1:])),
+        "p90_step_ms_after_first": float(np.percentile(step_ms[1:], 90)),
+        "first_step_ms": step_ms[0],
+        "loader_wait_share": train["loader_wait_share"],
+        "loader_wait_ms_after_first": float(
+            1e3 * np.sum(train["loader_wait_s"][1:])),
+        "allocated_mib_after_step": {mem_from: mem[mem_from], last: mem[last]},
+        "allocated_mib_max_from_step": max(
+            v for s, v in mem.items() if s >= mem_from),
+        "allocated_growth": mem[last] / mem[mem_from] - 1.0,
+        "train_launches": rec["train_launches"],
+        "colorize": rec["colorize"], "launches": rec["launches"],
+        "summary": rec["summary"],
+        "nonfinite": [(m["step"], k) for m in rec["metrics"]
+                      for k, v in m.items() if not np.isfinite(v)]}
+    summary = rec["summary"]
+    assert rec["rc"] == 0, ("total_loss did not fall", summary["losses"])
+    assert not report["nonfinite"], report["nonfinite"]
+    assert [m["step"] for m in rec["metrics"]] == list(range(1, steps + 1))
+    zero = {"smooth_pass": 0, "tridiag_pcr": 0, "corr_fwd_bf16": 0}
+    assert rec["train_launches"] == dict(
+        zero, corr_fwd=4 * steps, corr_bwd_dq=2 * steps,
+        corr_bwd_dkv=2 * steps), rec["train_launches"]
+    arms = [c["arm"] for c in rec["colorize"]]
+    assert arms.count("trained") == arms.count("random_init") == len(
+        arms) // 2 > 0, arms
+    for c in rec["colorize"]:
+        n = c["frames"]
+        assert c["launches"] == dict(
+            corr_fwd=n, smooth_pass=6 * n, tridiag_pcr=0, corr_bwd_dq=0,
+            corr_bwd_dkv=0, corr_fwd_bf16=0), c
+    assert sorted(summary) == ["holdout", "losses", "steps", "window"]
+    assert sorted(summary["losses"]) == sorted(CONV_LOSSES)
+    assert all(sorted(v) == ["first", "last"]
+               for v in summary["losses"].values())
+    assert sorted(summary["holdout"]) == ["random_init", "trained"]
+    for arm in summary["holdout"].values():
+        assert sorted(arm) == CONV_ARM_KEYS, arm
+        assert np.isfinite(arm["psnr_mean"]) and np.isfinite(arm["ssim_mean"])
+    assert abs(report["allocated_growth"]) <= 0.01, report[
+        "allocated_mib_after_step"]
+    return report
+
+
+def phase_convergence(seed: int, card: str):
+    """The convergence demo's main path: K1 at the held-out evaluation's
+    shape (B = 1, N = 1344, T = 1e-10) and K2's pass over a 224x384 frame
+    against their plain versions, then the demo on a generated scene tree
+    (CONV_STEPS steps at batch 8, 216x384, --holdout 2,
+    --device-preprocess; both held-out arms through cli.colorize and
+    cli.evaluate on the card). Returns (K1 row, K2 rows, the demo's
+    launches)."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed + 60)
+    k1 = _k1_inference_case(rng, dev, 1, CONV_EVAL_N, False, "convergence",
+                            "k1_holdout_eval")
+    k2 = [_smooth_pass_case(rng, dev, *CONV_EVAL_HW, axis, "convergence")
+          for axis in (1, 0)]
+    tmp = tempfile.mkdtemp(prefix="devc_chip_convergence_")
+    try:
+        src = os.path.join(tmp, "scenes")
+        t0 = time.perf_counter()
+        write_scene_tree(src, seed + 61)
+        data_s = time.perf_counter() - t0
+        rec = run_convergence_demo(os.path.join(tmp, "work"), src,
+                                   CONV_STEPS, CONV_BATCH, CONV_HOLDOUT,
+                                   os.path.join(tmp, "summary.json"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    try:
+        report = convergence_report(rec, CONV_STEPS, CONV_MEM_FROM)
+    finally:
+        emit("convergence", check="demo", batch=CONV_BATCH,
+             image_size=list(TRAIN_HW), eval_size=list(CONV_EVAL_HW),
+             scenes=CONV_SCENES, holdout=CONV_HOLDOUT, data_write_s=data_s,
+             rc=rec["rc"], wall_s=rec["wall_s"], summary=rec["summary"],
+             train_launches=rec["train_launches"],
+             colorize=rec["colorize"], launches=rec["launches"],
+             step_ms=[s * 1e3 for s in rec["train"]["step_s"]],
+             loader_wait_share=rec["train"]["loader_wait_share"],
+             allocated_mib={s: rec["allocated_mib"].get(s)
+                            for s in (1, CONV_MEM_FROM, CONV_STEPS)},
+             card=card)
+    emit("convergence", check="demo_report",
+         **{k: v for k, v in report.items()
+            if k not in ("colorize", "summary", "train_launches",
+                         "launches")}, card=card)
+    return k1, k2, rec["launches"]
+
+
 def sdpa_bf16_ms(theta, phi, values, temperature):
     """Time of one PyTorch call computing K1's out on bf16 inputs: SDPA
     with scale 1/T on the first fused backend that takes them, the values
@@ -2656,7 +2916,7 @@ def _par_rank_inference(ctx, seed: int, refs: dict):
         correspondence_warp_sharded,
     )
     from devc_tpu_torch.pipeline.frame import PipelineModels
-    from devc_tpu_torch.pipeline.video import use_full_fp32
+    from devc_tpu_torch.utils.convert import use_full_fp32
     from devc_tpu_torch.utils import build
     from devc_tpu_torch.utils.convert import state_dicts_from_numpy
     from devc_tpu_torch.utils.init import host_pipeline_params
@@ -2761,7 +3021,7 @@ def _par_rank_train(ctx, seed: int, one_path: str):
         shard_batch,
         shard_params,
     )
-    from devc_tpu_torch.pipeline.video import use_full_fp32
+    from devc_tpu_torch.utils.convert import use_full_fp32
     from devc_tpu_torch.train import loop
     from devc_tpu_torch.train.state import make_optimizers
     from devc_tpu_torch.utils import build
@@ -3064,7 +3324,7 @@ def main(argv=None) -> int:
          device_count=torch.cuda.device_count())
 
     from devc_tpu_torch.pipeline.frame import PipelineModels
-    from devc_tpu_torch.pipeline.video import use_full_fp32
+    from devc_tpu_torch.utils.convert import use_full_fp32
     from devc_tpu_torch.utils import build
     from devc_tpu_torch.utils.convert import state_dicts_from_numpy
     from devc_tpu_torch.utils.init import host_pipeline_params
@@ -3102,6 +3362,7 @@ def main(argv=None) -> int:
     cli_train, cli_colorize, cli_colorize_bf16 = phase_cli_train(
         frames, ref, args.seed, card)
     torch.cuda.empty_cache()
+    k1_conv, k2_conv, convergence = phase_convergence(args.seed, card)
     k1_par, bwd_par, par_paths = phase_parallel(args.seed, card, fp32_noise)
 
     # the serving path's shapes beside each kernel's own
@@ -3123,8 +3384,14 @@ def main(argv=None) -> int:
         bwd[name]["by_shape"] = [dict(row, path="train_spmd")]
         bwd[name]["max_abs_err"] = max(bwd[name]["max_abs_err"],
                                        row["max_abs_err"])
+    # the convergence demo's held-out evaluation at 224x384 (N = 1344)
+    k1["by_shape"].append(dict({k: k1_conv[k] for k in pick}, n=k1_conv["n"],
+                               temperature=1e-10,
+                               library_ms=k1_conv["library_ms"],
+                               path="convergence", dtype="float32"))
     k1["max_abs_err"] = max([k1["max_abs_err"]]
-                            + [c["max_abs_err"] for c in k1_serve + k1_par])
+                            + [c["max_abs_err"]
+                               for c in k1_serve + k1_par + [k1_conv]])
     # K1's bf16 kernel at its inference shapes, N = 5184 first
     k1_bf16_rows = [dict(
         {k: c[k] for k in ("b", "n", "c", "temperature", "ms", "plain_ms",
@@ -3141,13 +3408,18 @@ def main(argv=None) -> int:
     smooth["by_shape"] += [dict({k: c[k] for k in pick}, h=c["h"], w=c["w"],
                                 axis=c["axis"], guide=c["guide"],
                                 path="serve") for c in k2_serve]
+    smooth["by_shape"] += [dict({k: c[k] for k in pick if k != "b"},
+                                h=c["h"], w=c["w"], axis=c["axis"],
+                                path="convergence") for c in k2_conv]
     smooth["max_abs_err"] = k2["max_abs_err"] = max(
-        [smooth["max_abs_err"]] + [c["max_abs_err"] for c in k2_serve])
+        [smooth["max_abs_err"]]
+        + [c["max_abs_err"] for c in k2_serve + k2_conv])
     # launches: each driven path's count, read right after that path ran
     # with the counts at 0 (inference main path, the bf16 mode's main path,
     # the batched serving scheduler, the training step, cli.train's 30
     # steps, cli.colorize --train_ckpt on its checkpoint without and with
-    # --bf16). corr_fwd's wrapper counts both of K1's kernels; its bf16
+    # --bf16, the convergence demo's training and held-out evaluation).
+    # corr_fwd's wrapper counts both of K1's kernels; its bf16
     # launches are the bf16 kernel's, the rest the fp32 kernel's.
     # the parallel layer's paths count in the ranks' processes, summed
     # over the ranks: "parallel" (sharded frames and the data-parallel
@@ -3156,7 +3428,8 @@ def main(argv=None) -> int:
     paths = {"main": launches, "bf16": bf16_launches, "serve": serve,
              "train": train, "cli_train": cli_train,
              "cli_train_colorize": cli_colorize,
-             "cli_train_colorize_bf16": cli_colorize_bf16, **par_paths}
+             "cli_train_colorize_bf16": cli_colorize_bf16,
+             "convergence": convergence, **par_paths}
 
     def count(counts, name):
         if name == "corr_fwd":

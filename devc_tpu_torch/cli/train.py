@@ -144,6 +144,7 @@ def main(argv=None):
     from devc_tpu_torch.train.state import create_train_state
     from devc_tpu_torch.utils.convert import (
         frozen_vgg_from_state_dict,
+        use_full_fp32,
         vgg19_state_dict,
     )
     from devc_tpu_torch.utils.init import RANDOM_VGG_SOURCE, host_train_vgg_init
@@ -155,6 +156,9 @@ def main(argv=None):
     )
     from devc_tpu_torch.utils.profiling import StepTimer
 
+    # convolutions and matmuls in full fp32, as in inference (cuDNN's
+    # default is TF32)
+    use_full_fp32()
     owns_group = not dist.is_initialized()
     ctx = init_distributed(args.device)
     device = ctx.device

@@ -77,6 +77,12 @@ def srgb_to_linear(s):
     return torch.where(s > 0.04045, ((s + 0.055) / 1.055) ** 2.4, s / 12.92)
 
 
+def linear_to_srgb(lin):
+    safe = torch.clamp(lin, min=1e-12)  # grad-safe pow
+    return torch.where(lin > 0.0031308, 1.055 * safe ** (1.0 / 2.4) - 0.055,
+                       lin * 12.92)
+
+
 def _lab_f(t):
     safe = torch.clamp(t, min=1e-12)
     return torch.where(t > 0.008856451679035631, torch.pow(safe, 1.0 / 3.0),

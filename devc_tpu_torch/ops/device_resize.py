@@ -12,7 +12,7 @@ shape pair:
 and each frame costs two small products on the card. The plans are
 devc_tpu's float64 numpy plans, copied (the port imports nothing of
 devc_tpu). They are applied with `torch.einsum` in fp32 with TF32 off
-(`pipeline/video.py::use_full_fp32`): plain matrix products, which
+(`utils/convert.py::use_full_fp32`): plain matrix products, which
 devc_tpu also leaves to its compiler outside any Pallas kernel. The only
 deviation from the host path is fp32 accumulation, which flips
 truncation ties by at most one uint8 step.
@@ -127,7 +127,7 @@ def device_centerpad(frames_u8, a_h, a_w):
     """Apply a centerpad_plan on the frames' device: uint8 [..., H, W, 3]
     with A_h [th, H], A_w [tw, W] (fp32 tensors on that device) -> uint8
     [..., th, tw, 3]."""
-    from devc_tpu_torch.pipeline.video import use_full_fp32
+    from devc_tpu_torch.utils.convert import use_full_fp32
 
     use_full_fp32()
     x = frames_u8.float()
@@ -139,7 +139,7 @@ def device_centerpad(frames_u8, a_h, a_w):
 def device_centerpad_batched(frames_u8, a_h, a_w):
     """Per-slot plans: frames [B, H, W, 3] with A_h [B, th, H] and A_w
     [B, tw, W] -> uint8 [B, th, tw, 3]; one batched product per axis."""
-    from devc_tpu_torch.pipeline.video import use_full_fp32
+    from devc_tpu_torch.utils.convert import use_full_fp32
 
     use_full_fp32()
     x = frames_u8.float()

@@ -61,17 +61,10 @@ from devc_tpu_torch.pipeline.frame import (
     query_embedding,
 )
 from devc_tpu_torch.pipeline.graph import CapturedStep
+from devc_tpu_torch.utils.convert import use_full_fp32
 
 
 _PREFETCH = 4  # frames decoded ahead of, and encoded behind, the device
-
-
-def use_full_fp32() -> None:
-    """Keep cuDNN convolutions and CUDA matmuls in full fp32 (PyTorch runs
-    cuDNN convolutions in TF32 by default). At T = 1e-10 the warp is an
-    argmax, which flips on differences far below TF32's precision."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def check_image_size(h: int, w: int) -> None:

@@ -140,3 +140,37 @@ def load_run_metadata(directory: str) -> dict | None:
         return None
     with open(path) as f:
         return json.load(f)
+
+
+def _restore_like(tree, like):
+    """tree laid out as `like`, each tensor on its counterpart's device; a
+    missing key or another shape raises, as orbax's restore does."""
+    if isinstance(like, dict):
+        return {k: _restore_like(tree[k], v) for k, v in like.items()}
+    if isinstance(like, torch.Tensor):
+        if tree.shape != like.shape:
+            raise ValueError(f"snapshot tensor {tuple(tree.shape)} != "
+                             f"{tuple(like.shape)}")
+        return tree.to(like.device)
+    return tree
+
+
+def save_params(path: str, params) -> None:
+    """One-shot parameter snapshot (a deployment artifact): a nested dict
+    of tensors written with torch.save to a temporary name and renamed
+    into place, as `CheckpointManager` does."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(params, tmp)
+    os.replace(tmp, path)
+
+
+def load_params(path: str, params_like=None):
+    """A `save_params` snapshot, on the CPU; with params_like, laid out as
+    that tree."""
+    blob = torch.load(os.path.abspath(path), map_location="cpu",
+                      weights_only=True)
+    if params_like is None:
+        return blob
+    return _restore_like(blob, params_like)

@@ -43,6 +43,12 @@ def weighted_l1(x, y, w):
     return torch.mean(torch.abs(x - y) * w)
 
 
+def smooth_l1(x, y, beta: float = 1.0):
+    d = torch.abs(x - y)
+    return torch.mean(torch.where(d < beta, 0.5 * d * d / beta,
+                                  d - 0.5 * beta))
+
+
 def total_variation(x):
     """TV loss on NHWC x (reference utils/util.py:197-200)."""
     dx = x[:, :, 1:, :] - x[:, :, :-1, :]

@@ -37,6 +37,17 @@ class FlatAdamState(NamedTuple):
     nu_max: torch.Tensor | None  # running max of bias-corrected nu (amsgrad)
 
 
+def make_lr_schedule(base_lr: float, step_size: int = 100,
+                     gamma: float = 0.1):
+    """StepLR: count -> base_lr * gamma ** floor(count / step_size), in
+    fp32 (optax's staircase exponential_decay, as devc_tpu builds it)."""
+    def schedule(count: int) -> float:
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+        return float(f32(base_lr) * f32(gamma) ** (count // step_size))
+
+    return schedule
+
+
 def param_groups(module: nn.Module) -> dict:
     """{top-level child name: its parameters in registration order} for a
     ModuleDict such as params_g ({"warpnet", "colorvid"}), else
@@ -73,8 +84,7 @@ class FlatAdam:
         """StepLR's multiplier gamma ** floor(count / step), in fp32."""
         if self.lr_step is None:
             return 1.0
-        return float(torch.tensor(self.lr_gamma, dtype=torch.float32)
-                     ** (count // self.lr_step))
+        return make_lr_schedule(1.0, self.lr_step, self.lr_gamma)(count)
 
     def init(self, groups: dict) -> FlatAdamState:
         flat = torch.cat([t.detach().reshape(-1).float()

@@ -107,6 +107,14 @@ def checked_device(device) -> torch.device:
     return device
 
 
+def use_full_fp32() -> None:
+    """Keep cuDNN convolutions and CUDA matmuls in full fp32 (PyTorch runs
+    cuDNN convolutions in TF32 by default). At T = 1e-10 the warp is an
+    argmax, which flips on differences far below TF32's precision."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def frozen_vgg(params, device="cuda"):
     """VGG19 from devc_tpu's numpy params on `device`, frozen (eval, no
     parameter gradients; its input can still receive gradient)."""

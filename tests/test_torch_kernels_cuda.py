@@ -335,7 +335,7 @@ def test_frame_on_card_matches_golden(cuda):
 
     from devc_tpu_torch.pipeline import frame
     from devc_tpu_torch.pipeline.frame import PipelineModels
-    from devc_tpu_torch.pipeline.video import use_full_fp32
+    from devc_tpu_torch.utils.convert import use_full_fp32
     from devc_tpu_torch.utils.convert import state_dicts_from_numpy
     from devc_tpu_torch.utils.init import host_pipeline_params
 

@@ -67,6 +67,17 @@ def test_elementwise_losses(name):
     _check(getattr(J, name), getattr(P, name), args)
 
 
+@pytest.mark.parametrize("beta", [0.1, 1.0, 5.0, 40.0])
+def test_smooth_l1(beta):
+    """Both branches at every beta: differences of 0 to ~100."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 8, 12, 2).astype(np.float32) * 30
+    y = x + rng.randn(2, 8, 12, 2).astype(np.float32) * 0.3
+    y[0] = rng.randn(8, 12, 2).astype(np.float32) * 30
+    _check(lambda a, b: J.smooth_l1(a, b, beta),
+           lambda a, b: P.smooth_l1(a, b, beta), (x, y))
+
+
 @pytest.mark.parametrize("domain_invariant", [False, True])
 def test_perceptual_loss(domain_invariant):
     rng = np.random.RandomState(2)

@@ -46,6 +46,21 @@ def test_rgb_side(rng, name):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
 
+def test_linear_to_srgb(rng):
+    """Both branches, and values at and around the 0.0031308 threshold
+    (a float32 step either side of it and exactly on it)."""
+    t = np.float32(0.0031308)
+    edge = np.array([0.0, 1e-12, 1e-6, np.nextafter(t, np.float32(0)), t,
+                     np.nextafter(t, np.float32(1)), 0.0031, 0.0032, 1.0],
+                    np.float32)
+    x = np.concatenate([edge, rng.rand(64).astype(np.float32),
+                        rng.rand(16).astype(np.float32) * 0.01])
+    want = np.asarray(jcs.linear_to_srgb(jnp.asarray(x)))
+    got = tcs.linear_to_srgb(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(got[:4], want[:4])  # the linear branch
+
+
 @pytest.mark.parametrize("name", ["lab_to_rgb", "center_lab", "uncenter_lab",
                                   "lab_centered_to_rgb"])
 def test_lab_side(rng, name):

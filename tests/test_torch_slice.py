@@ -249,9 +249,10 @@ def test_port_imports_no_jax():
             "devc_tpu_torch.data.distortion, devc_tpu_torch.data.videoloader, "
             "devc_tpu_torch.utils.logging, devc_tpu_torch.utils.profiling, "
             "devc_tpu_torch.models.vgg19_gray, devc_tpu_torch.train.state, "
-            "devc_tpu_torch.utils.metrics, devc_tpu_torch.cli.evaluate; "
+            "devc_tpu_torch.utils.metrics, devc_tpu_torch.cli.evaluate, "
+            "devc_tpu_torch.examples.convergence_demo; "
             "bad = sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'devc_tpu')); "
+            "if m.split('.')[0] in ('jax', 'devc_tpu', 'cli')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
@@ -266,4 +267,5 @@ def test_port_imports_no_jax():
                         s = line.strip()
                         assert not s.startswith(
                             ("import jax", "from jax", "import devc_tpu.",
-                             "from devc_tpu.", "from devc_tpu ")), (f, s)
+                             "from devc_tpu.", "from devc_tpu ",
+                             "import cli.", "from cli.")), (f, s)

@@ -57,10 +57,16 @@ from devc_tpu_torch.train import loop as tloop
 from devc_tpu_torch.train.checkpoint import (
     CheckpointManager,
     load_run_metadata,
+    load_params,
     load_train_params_g,
+    save_params,
     save_run_metadata,
 )
-from devc_tpu_torch.train.state import FlatAdam, make_optimizers
+from devc_tpu_torch.train.state import (
+    FlatAdam,
+    make_lr_schedule,
+    make_optimizers,
+)
 from devc_tpu_torch.utils.convert import (
     colorvidnet_state_dict,
     frozen_vgg,
@@ -358,3 +364,55 @@ def test_train_step_moves_weights_and_checkpoint_round_trips(tmp_path):
     assert load_run_metadata(str(tmp_path / "ckpt")) == {"vgg": "random"}
     assert load_run_metadata(str(tmp_path / "none")) is None
     assert not os.path.exists(tmp_path / "none")
+
+
+@pytest.mark.parametrize("base_lr,step_size,gamma", [
+    (1e-3, 100, 0.1), (2e-4, 3, 0.5), (1.0, 100000, 0.1)])
+def test_make_lr_schedule_matches_devc_tpu(base_lr, step_size, gamma):
+    """StepLR's value at the steps around each boundary equals devc_tpu's
+    (optax's staircase exponential_decay) in fp32, and FlatAdam's factor
+    is the unit-base schedule."""
+    from devc_tpu.train.state import make_lr_schedule as j_make_lr_schedule
+
+    want_fn = j_make_lr_schedule(base_lr, step_size, gamma)
+    got_fn = make_lr_schedule(base_lr, step_size, gamma)
+    unit = j_make_lr_schedule(1.0, step_size, gamma)
+    tx = FlatAdam(1.0, lr_step=step_size, lr_gamma=gamma)
+    counts = sorted({max(0, k * step_size + d)
+                     for k in range(5) for d in (-1, 0, 1)})
+    for count in counts:
+        assert got_fn(count) == float(np.float32(want_fn(count))), count
+        assert tx.schedule_factor(count) == float(np.float32(unit(count)))
+    assert got_fn(step_size) < got_fn(step_size - 1)
+
+
+def test_save_params_round_trips_like_devc_tpu(tmp_path):
+    """A parameter snapshot comes back bit for bit, as devc_tpu's orbax
+    snapshot of the same tree does; a template of other shapes is refused;
+    no temporary file is left."""
+    from devc_tpu.train.checkpoint import load_params as j_load_params
+    from devc_tpu.train.checkpoint import save_params as j_save_params
+
+    rng = np.random.RandomState(7)
+    tree = {"warpnet": {"theta.weight": rng.randn(4, 3, 1, 1),
+                        "theta.bias": rng.randn(4)},
+            "colorvid": {"conv1_1.0.weight": rng.randn(2, 7, 3, 3)}}
+    tree = jax.tree.map(lambda a: a.astype(np.float32), tree)
+    j_save_params(str(tmp_path / "jax"), jax.tree.map(jnp.asarray, tree))
+    j_back = j_load_params(str(tmp_path / "jax"))
+    t_tree = jax.tree.map(torch.from_numpy, tree)
+    save_params(str(tmp_path / "torch" / "params.pt"), t_tree)
+    t_back = load_params(str(tmp_path / "torch" / "params.pt"))
+    for net, sd in tree.items():
+        for k, a in sd.items():
+            np.testing.assert_array_equal(np.asarray(j_back[net][k]), a)
+            assert t_back[net][k].dtype == torch.float32
+            np.testing.assert_array_equal(t_back[net][k].numpy(), a)
+    like = load_params(str(tmp_path / "torch" / "params.pt"), t_tree)
+    assert all(torch.equal(like[n][k], t_tree[n][k])
+               for n in tree for k in tree[n])
+    bad = {n: {k: v[..., :1] for k, v in sd.items()}
+           for n, sd in t_tree.items()}
+    with pytest.raises(ValueError):
+        load_params(str(tmp_path / "torch" / "params.pt"), bad)
+    assert os.listdir(tmp_path / "torch") == ["params.pt"]

@@ -236,6 +236,24 @@ def test_train_cli_refuses_cuda_without_a_gpu(tmp_path):
         ttrain.main(args[:-2] + ["--device", "cuda"])
 
 
+def test_train_cli_keeps_convolutions_in_full_fp32(tmp_path):
+    """cli.train switches cuDNN's TF32 default off, as inference does,
+    before anything else (here: the missing-dataset refusal)."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(SystemExit, match="need --data_root"):
+            ttrain.main(["--device", "cpu", "--log_dir", str(tmp_path / "r"),
+                         "--checkpoint_dir", str(tmp_path / "c")])
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
 @pytest.fixture(scope="module")
 def exported(trained, tmp_path_factory):
     root, _data, _ = trained
