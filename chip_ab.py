@@ -2,7 +2,7 @@
 """Run the port's phases of two checkouts on one GPU, in turns.
 
     python3 chip_ab.py BEFORE_DIR AFTER_DIR [--seed 0]
-        [--phases kernels,main,layers,bwd,train]
+        [--phases kernels,k1,main,layers,bwd,train]
 
 Each turn runs, in a fresh process from one checkout's root, that
 checkout's own `chip_smoke.py` phases, with the same seed and seeded
@@ -10,8 +10,10 @@ random weights: by default `kernels`, `main` and `layers` (K1 and K2
 against their plain versions; colorize_frames on 8 frames of 432x768; one
 frame's stages timed apart) and `bwd` (K2b / K3, the correspondence
 backward, against its plain version, timed at the training shape);
-`train` (the training step at batch 16, 216x384: ms per step, peak
-memory) on request. The turns go BEFORE, AFTER, AFTER, BEFORE, so that a
+`k1` (K1 fp32 alone at every shape a driven path gives it, with SDPA's
+fp32 call and the bound: `chip_smoke.k1_sweep`) and `train` (the
+training step at batch 16, 216x384: ms per step, peak memory) on
+request. The turns go BEFORE, AFTER, AFTER, BEFORE, so that a
 drift of the card over the call shows on both sides. Every JSON line a
 turn prints is printed again with "tree" (the checkout's label) and
 "turn" added; a turn that fails stops the run with its exit code.
@@ -28,7 +30,7 @@ import os
 import subprocess
 import sys
 
-PHASES = ("kernels", "main", "layers", "bwd", "train")
+PHASES = ("kernels", "k1", "main", "layers", "bwd", "train")
 
 _TURN = """
 import sys
@@ -46,6 +48,8 @@ build.load_kernels()
 card = c.card_line()
 if "kernels" in phases:
     c.phase_kernels(seed)
+if "k1" in phases:
+    c.k1_sweep(seed)
 if "main" in phases or "layers" in phases:
     models = PipelineModels.from_state_dicts(
         state_dicts_from_numpy(host_pipeline_params(seed)), "cuda")

@@ -15,19 +15,31 @@ line {"ok": true, "device": {...}}:
                inference) and at the training shape (B = 16, N = 5184),
                and K2's two entries (the fused smoother pass at the four
                frame-pass shapes; the general tridiagonal solve at four
-               [B, L] shapes) vs their plain PyTorch versions on the card:
-               errors and median CUDA-event times of both, and of one
-               PyTorch call computing K1's out (SDPA) as a yardstick.
+               [B, L] shapes) vs their plain PyTorch versions on the card
+               (K1 by `_k1_case`, as every phase checks it: sim also
+               against float64, out at T = 0.01 against the plain version
+               in float64 and no farther from it than the fp32 plain
+               version): errors and median CUDA-event times of both, and
+               of one PyTorch call computing K1's out (SDPA on the fp32
+               inputs, the values zero-padded to 16-byte rows for the
+               fused backends: `sdpa_ms`) as a yardstick; bounds from
+               `bound` / `k1_bound` (fp32-accurate products at three TF32
+               passes).
   4. bwd       K2b / K3 (the correspondence backward: K3 the one score
-               pass with dphi, K2b dtheta from its df scratch) vs their
-               plain version at the training shape (B = 16, N = 5184,
-               C = 256, T = 0.01), at B = 1, at C = 96 and 512 (ragged N)
-               and at B = 1, N = 20736: errors, a second call bit-equal, a
-               chunked run (4 chunks) bit-equal to one chunk, the df
-               scratch bytes; at N = 5184 ms of each kernel, of the pair
-               and of the plain backward, with each one's bound and the
-               pair's; and the sim-gradient routing check (d_out = 0,
-               d_sim = 1: dtheta of every row is phi at the row's argmax).
+               pass with dphi, K2b dtheta from its df scratch) vs the
+               plain version in float64 (`bwd_float64`), and no farther
+               from it than the fp32 plain version, at the training shape
+               (B = 16, N = 5184, C = 256, T = 0.01), at B = 1, at C = 96 and
+               512 (ragged N) and at B = 1, N = 20736: errors, a second
+               call bit-equal, a chunked run (4 chunks) bit-equal to one
+               chunk, the df scratch bytes; K1's sim bit-equal to the
+               row max K3 finds (B = 16, C = 96, 512); at N = 5184 ms of
+               each kernel, of K3's score pass and product apart, of the
+               score rule's TF32 split of theta and phi alone, of the
+               pair and of the plain backward, with each one's bound
+               (`bwd_bounds`) and the pair's; and the sim-gradient
+               routing check (d_out = 0, d_sim = 1: dtheta of every row
+               is phi at the row's argmax).
   5. parity    one frame at a small size, teacher-forced, on the card
                (kernels) vs on the CPU (plain versions).
   6. main      colorize_frames on 8 textured 432x768 frames with seeded
@@ -182,12 +194,31 @@ PEAK_BYTES_PER_S = 3.35e12
 BF16_SIZES = ((H, W), (2 * H, 2 * W))
 
 
-def bound(flop: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of the operations at
-    the fp32 peak and the bytes at the memory rate."""
-    ops_ms, bytes_ms = flop / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+def bound(flop: float, nbytes: float, tf32x3_flop: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the operations and
+    the bytes at the memory rate. The operations are `flop` on the fp32
+    pipe (FMA units, PEAK_FP32_FLOPS) and `tf32x3_flop` of fp32-accurate
+    products, each of which the tensor cores form as three TF32 passes
+    (3 x tf32x3_flop at PEAK_TF32_FLOPS); the two pipes run side by side,
+    so the operations take the longer of the two."""
+    ops_ms = max(flop / PEAK_FP32_FLOPS,
+                 3 * tf32x3_flop / PEAK_TF32_FLOPS) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def k1_bound(b: int, nq: int, nk: int, c: int = 256,
+             emit_l: bool = False) -> dict:
+    """K1 fp32's bound: the scores (2 b nq nk c FLOP, fp32-accurate: three
+    TF32 passes on the tensor cores) beside the softmax's weights and P.V
+    (2 b nq nk 3 FLOP on the fp32 pipe); theta, phi, values read once, out
+    and sim (and l) written once. `fma_rate_bound_ms` is the retired bound,
+    every operation at the fp32 FMA rate."""
+    pairs = b * nq * nk
+    nbytes = 4 * b * (nq * c + nk * (c + 3) + nq * (4 + emit_l))
+    return {**bound(2 * pairs * 3, nbytes, 2 * pairs * c),
+            "fma_rate_bound_ms": bound(2 * pairs * (c + 3), nbytes)["bound_ms"]}
 
 
 def emit(phase: str, **fields) -> None:
@@ -258,76 +289,157 @@ def _k1_inputs(rng, b, n, dev):
     return [torch.from_numpy(x).to(dev) for x in (theta, phi, values)]
 
 
-def _k1_cases(rng, dev):
-    """K1 against its plain version at each shape; returns one summary per
-    shape (ms, plain and library ms, bound, launches of its own test)."""
+def _k1_case(theta, phi, values, t: float, emit_l: bool = False,
+             timed: bool = True) -> dict:
+    """K1 fp32 on these inputs against its plain version: sim within 1e-5
+    of it and within 1e-6 of float64, l >= 1 (asked for in the check
+    whatever emit_l); at T = 0.01 out within 1e-3 of the plain version in
+    float64 and no farther from it than the fp32 plain version; at T =
+    1e-10 at most 1e-3 of rows differing from the fp32 plain version.
+    With timed, at emit_l: ms, plain ms, SDPA's call (sdpa_ms), the bound
+    (k1_bound). Returns the case; max_abs_err is out's and sim's (sim's
+    alone at T = 1e-10, where out is an argmax)."""
     import torch
 
-    from devc_tpu_torch.ops.correspondence import correspondence_warp_einsum
+    from devc_tpu_torch.ops.correspondence import (
+        correspondence_fwd_plain,
+        correspondence_warp_einsum,
+    )
     from devc_tpu_torch.ops.cuda_corr import corr_fwd
 
-    shapes = [(1, n, (0.01, 1e-10)) for n in K1_SIZES] + [
-        (K1_TRAIN[0], K1_TRAIN[1], (0.01,))]
+    b, nq, c = theta.shape
+    nk = phi.shape[1]
+    out, sim, l = corr_fwd(theta, phi, values, t, emit_l=True)
+    want_out, want_sim = correspondence_warp_einsum(theta, phi, values, t)
+    sim64 = torch.bmm(theta.double(), phi.double().transpose(1, 2)
+                      ).amax(dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    row_err = (out - want_out).abs().amax(dim=-1)
+    case = {"kernel": "corr_fwd", "b": b, "nq": nq, "nk": nk, "c": c,
+            "temperature": t, "emit_l": emit_l,
+            "sim_max_abs_err": (sim - want_sim).abs().max().item(),
+            "sim_max_abs_err_vs_float64":
+                (sim.double() - sim64).abs().max().item(),
+            "l_min": l.min().item()}
+    del sim64
+    # sim: a max of fp32 dot products summed in another order; and within
+    # what the fp32 score rule may lose against float64 on unit rows
+    # (tests/test_torch_corr_fp32_plan.py::SIM_FP64_BOUND)
+    assert case["sim_max_abs_err"] <= 1e-5, case
+    assert case["sim_max_abs_err_vs_float64"] <= 1e-6, case
+    assert case["l_min"] >= 1.0, case  # the max contributes 1
+    if t == 0.01:
+        # exp((s - m) / T) turns a score round-off d (~1e-7) into a
+        # relative weight change d / T ~ 1e-5, which moves a weighted mean
+        # of values spanning 200 by ~1e-3 at most: the bound devc_tpu's
+        # tests hold its Pallas kernel to against the einsum path
+        # (tests/test_pallas_corr.py). Held against the plain version in
+        # float64: the fp32 plain version's own cuBLAS round-off (~3e-7 in
+        # a score, more than the kernel's) takes up that bound's room at N
+        # = 20736. The kernel must lie no farther from float64 than the
+        # fp32 plain version does.
+        out64, _ = correspondence_warp_einsum(
+            theta.double(), phi.double(), values.double(), t)
+        case["out_max_abs_err_vs_plain_fp32"] = row_err.max().item()
+        case["out_max_abs_err"] = (out.double() - out64).abs().max().item()
+        case["plain_fp32_out_max_abs_err_vs_float64"] = (
+            want_out.double() - out64).abs().max().item()
+        del out64
+        assert case["out_max_abs_err"] <= 1e-3, case
+        assert case["out_max_abs_err"] <= \
+            case["plain_fp32_out_max_abs_err_vs_float64"], case
+        case["max_abs_err"] = max(case["out_max_abs_err"],
+                                  case["sim_max_abs_err"])
+    else:
+        # T = 1e-10 is an exact argmax-average; a row whose two best
+        # scores differ by less than the summation-order round-off may
+        # pick another key (near-tie flip), so up to 0.1% of rows may
+        # differ and all others must be equal
+        case["rows_differing"] = (row_err > 1e-4).float().mean().item()
+        assert case["rows_differing"] <= 1e-3, case
+        case["max_abs_err"] = case["sim_max_abs_err"]
+    del out, sim, l, want_out, want_sim, row_err
+    if timed:
+        plain = correspondence_fwd_plain if emit_l else \
+            correspondence_warp_einsum
+        case["ms"] = cuda_ms(lambda: corr_fwd(theta, phi, values, t,
+                                              emit_l=emit_l), queued=True)
+        case["plain_ms"] = cuda_ms(lambda: plain(theta, phi, values, t),
+                                   queued=True)
+        case.update(sdpa_ms(theta, phi, values, t))
+        case["gflop_per_s"] = 2 * b * nq * nk * 259 / case["ms"] / 1e6
+        case.update(k1_bound(b, nq, nk, emit_l=emit_l))
+        case["share_of_bound"] = case["bound_ms"] / case["ms"]
+    torch.cuda.empty_cache()
+    return case
+
+
+def _k1_cases(rng, dev):
+    """K1 against its plain version at each shape (`_k1_case`; timed at
+    the path's temperature, 1e-10 for inference and 0.01 with l for
+    training); returns one summary per shape (ms, plain and library ms,
+    bound)."""
+    import torch
+
+    shapes = [(1, n, (0.01, 1e-10), False) for n in K1_SIZES] + [
+        (K1_TRAIN[0], K1_TRAIN[1], (0.01,), True)]
     rows = []
-    for b, n, temps in shapes:
+    for b, n, temps, emit_l in shapes:
         theta, phi, values = _k1_inputs(rng, b, n, dev)
-        flop = 2 * b * n * n * 259
-        # theta, phi, values read once; out, sim, l written once
-        nbytes = 4 * b * n * (2 * 256 + 3 + 5)
         row = {"b": b, "n": n, "c": 256, "max_abs_err": 0.0}
-        for temperature in temps:
-            out, sim, l = corr_fwd(theta, phi, values, temperature,
-                                   emit_l=True)
-            want_out, want_sim = correspondence_warp_einsum(
-                theta, phi, values, temperature)
-            torch.cuda.synchronize()
-            sim_err = (sim - want_sim).abs().max().item()
-            row_err = (out - want_out).abs().amax(dim=-1)
-            out_err = row_err.max().item()
-            case = {"kernel": "corr_fwd", "b": b, "n": n, "c": 256,
-                    "temperature": temperature, "sim_max_abs_err": sim_err,
-                    "out_max_abs_err": out_err,
-                    "l_min": l.min().item()}
-            # sim: a max of fp32 dot products summed in another order
-            assert sim_err <= 1e-5, case
-            assert l.min().item() >= 1.0, case  # the max contributes 1
-            if temperature == 0.01:
-                # exp((s - m) / T) turns a score round-off d (~1e-7) into a
-                # relative weight change d / T ~ 1e-5, which moves a
-                # weighted mean of values spanning 200 by ~1e-3 at most:
-                # the bound devc_tpu's tests hold its Pallas kernel to
-                # against the einsum path (tests/test_pallas_corr.py)
-                assert out_err <= 1e-3, case
-                row["max_abs_err"] = max(row["max_abs_err"], out_err, sim_err)
-            else:
-                # T = 1e-10 is an exact argmax-average; a row whose two
-                # best scores differ by less than the summation-order
-                # round-off may pick another key (near-tie flip), so up to
-                # 0.1% of rows may differ and all others must be equal
-                flipped = (row_err > 1e-4).float().mean().item()
-                case["rows_differing"] = flipped
-                assert flipped <= 1e-3, case
-                row["max_abs_err"] = max(row["max_abs_err"], sim_err)
-            del out, sim, l, want_out, want_sim
-            # timed at the path's temperature: 1e-10 for inference, 0.01
-            # for training
-            if temperature == temps[-1]:
-                case["ms"] = cuda_ms(lambda: corr_fwd(
-                    theta, phi, values, temperature), queued=True)
-                case["plain_ms"] = cuda_ms(lambda: correspondence_warp_einsum(
-                    theta, phi, values, temperature), queued=True)
-                case["library_ms"], case["library_call"] = sdpa_ms(
-                    theta, phi, values, temperature)
-                case["gflop_per_s"] = flop / case["ms"] / 1e6
-                case.update(bound(flop, nbytes))
-                row.update({k: case[k] for k in (
-                    "temperature", "ms", "plain_ms", "library_ms",
-                    "library_call", "gflop_per_s", "bound_ms", "bound_by")})
+        for t in temps:
+            case = _k1_case(theta, phi, values, t, emit_l,
+                            timed=t == temps[-1])
             emit("kernels", **case)
-            torch.cuda.empty_cache()
+            row["max_abs_err"] = max(row["max_abs_err"], case["max_abs_err"])
+        row.update({k: case[k] for k in (
+            "temperature", "emit_l", "ms", "plain_ms", "library_ms",
+            "library_call", "library_value_width", "gflop_per_s",
+            "bound_ms", "bound_by", "fma_rate_bound_ms")})
         rows.append(row)
         del theta, phi, values
         torch.cuda.empty_cache()
+    return rows
+
+
+# K1 fp32 at every shape a driven path gives it (PERF.md's table): (B,
+# Nq, Nk, T, emit_l, what); Nq < Nk is a rows shard, Nk < Nq a keys shard.
+# The phases drive each of them through `_k1_case` too.
+K1_SWEEP = (
+    (1, 5184, 5184, 1e-10, False, "main: one 432x768 frame"),
+    (4, 5184, 5184, 1e-10, False, "serve: four clip slots"),
+    (3, 5184, 5184, 1e-10, False, "three exemplars, theta repeated"),
+    (1, 1344, 1344, 1e-10, False, "convergence: held-out 224x384"),
+    (1, 20736, 20736, 1e-10, False, "one 864x1536 frame"),
+    (16, 5184, 5184, 0.01, True, "train: batch 16"),
+    (8, 5184, 5184, 0.01, True, "a rank's half of batch 16; the demo"),
+    (1, 2592, 5184, 1e-10, False, "parallel: rows shard"),
+    (1, 5184, 2592, 1e-10, True, "parallel: keys shard"),
+    (1, 10368, 20736, 1e-10, False, "rows shard at 864x1536"),
+    (1, 20736, 10368, 1e-10, True, "keys shard at 864x1536"),
+)
+
+
+def k1_sweep(seed: int):
+    """K1 fp32 alone (`_k1_case`) at every shape of K1_SWEEP, in one
+    process: one `kernels` line per shape; returns the rows. For comparing
+    two checkouts (chip_ab.py --phases k1)."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed + 13)
+    rows = []
+    for b, nq, nk, t, emit_l, what in K1_SWEEP:
+        theta = torch.from_numpy(unit_rows(rng, b, nq, 256)).to(dev)
+        if what.startswith("three exemplars"):
+            theta = theta[:1].expand(b, nq, 256).contiguous()
+        _, phi, values = _k1_inputs(rng, b, nk, dev)
+        row = dict(_k1_case(theta, phi, values, t, emit_l), check="k1_sweep",
+                   path=what)
+        emit("kernels", **row)
+        rows.append(row)
+        del theta, phi, values
     return rows
 
 
@@ -452,25 +564,39 @@ def phase_kernels(seed: int):
 
 
 def sdpa_ms(theta, phi, values, temperature):
-    """Time of one PyTorch call computing K1's out: SDPA with scale 1/T,
-    on the first backend that takes fp32 at these head sizes (tried in
-    this order). Returns (ms, "backend name")."""
-    import torch
+    """Time of one PyTorch call computing K1's out on the inputs' dtype
+    (fp32 or bf16): SDPA with scale 1/T on the first fused backend that
+    takes them, the values as they are (width 3) or, where every fused
+    backend refuses that width, zero-padded to 16-byte rows (4 fp32 or 8
+    bf16 columns, the narrowest the EFFICIENT backend takes; its fp32
+    products are split TF32 on the tensor cores); the MATH backend last.
+    Returns library_ms, library_call (the backend), library_value_width
+    and library_refused (each backend that refused, with the width)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    q, k, v = (t[:, None] for t in (theta, phi, values))  # one head
-    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
-                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
-        call = lambda: F.scaled_dot_product_attention(q, k, v,
-                                                      scale=1.0 / temperature)
-        with sdpa_kernel([backend]):
-            try:  # a backend that refuses these inputs raises at once
-                call()
-            except RuntimeError:
-                continue
-            return (cuda_ms(call, queued=True),
-                    f"F.scaled_dot_product_attention ({backend.name})")
+    q, k = theta[:, None], phi[:, None]  # one head
+    fused = (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION)
+    padded = 16 // values.element_size()
+    refused = []
+    for width, backends in ((3, fused), (padded, fused),
+                            (3, (SDPBackend.MATH,))):
+        v = F.pad(values, (0, width - 3))[:, None]
+        for backend in backends:
+            call = lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=1.0 / temperature)
+            with sdpa_kernel([backend]):
+                try:  # a backend that refuses these inputs raises at once
+                    call()
+                except RuntimeError:
+                    refused.append(f"{backend.name} (width {width})")
+                    continue
+                return {"library_ms": cuda_ms(call, queued=True),
+                        "library_call": "F.scaled_dot_product_attention "
+                                        f"({backend.name})",
+                        "library_value_width": width,
+                        "library_refused": refused}
     raise RuntimeError("no SDPA backend ran")
 
 
@@ -482,46 +608,50 @@ def unit_rows(rng, *shape):
 
 
 def bwd_bounds(b: int, nq: int, nk: int, c: int) -> dict:
-    """Least times of the correspondence backward on the card, for the pair
-    (the function: theta, phi, values, m, l, D, d_sim, d_out in; dtheta,
-    dphi, dvalues out) and for each kernel as its wrapper computes it:
+    """Least times of the correspondence backward on the card (`bound`),
+    for the pair (the function: theta, phi, values, m, l, D, d_sim, d_out
+    in; dtheta, dphi, dvalues out), for each kernel as its wrapper
+    computes it, and for K3's two halves:
 
-      ops:   the score pass, 2 B Nq Nk C FLOP, must be fp32 FMAs in K1's
-             order (PEAK_FP32_FLOPS); the products need no order and run
-             at the TF32 tensor-core rate (PEAK_TF32_FLOPS): dtheta and
-             dphi 2 B Nq Nk C each, dvalues 2 B Nq Nk 3. The pair's ops
-             bound is max(score pass, all products); K3's max(score pass,
-             dphi + dvalues); K2b's the dtheta product.
+      ops:   every fp32-accurate product at three TF32 passes on the
+             tensor cores: the scores, 2 B Nq Nk C FLOP, and dtheta and
+             dphi, 2 B Nq Nk C each; on the fp32 pipe dvalues, 2 B Nq Nk 3.
+             The pair: scores + dtheta + dphi; K3: scores + dphi (its score
+             pass: the scores; its product: dphi); K2b: dtheta.
       bytes: each input read once, each output written once, at
              PEAK_BYTES_PER_S. K3's outputs include the df scratch
-             [B, Nq', Nk'] and K2b's inputs include it; the pair's do not.
+             [B, Nq', Nk'] (its score pass writes it, its product reads
+             it) and K2b's inputs include it; the pair's do not.
 
-    The earlier bound of 6.6 ms per kernel (both products and a score pass
-    each at the fp32 rate) is retired: the design forms the scores once and
-    the products are no longer bound to the fp32 pipe."""
+    Retired: 6.6 ms per kernel (every product at the fp32 rate), then the
+    score pass at the fp32 FMA rate (3.29 ms at B = 16, N = 5184, C = 256),
+    kept as `fma_rate_bound_ms`: the products run 3xTF32 on the tensor
+    cores, and so does every score (csrc/corr_score.cuh)."""
     from devc_tpu_torch.ops.cuda_corr import df_scratch_bytes
 
     pairs = b * nq * nk
-    score_ms = 2 * pairs * c / PEAK_FP32_FLOPS * 1e3
-    product_ms = lambda width: 2 * pairs * width / PEAK_TF32_FLOPS * 1e3
-    byte_ms = lambda n: n / PEAK_BYTES_PER_S * 1e3
+    prod = 2 * pairs * c  # one score matrix, or one of the two products
     df_bytes = b * df_scratch_bytes(nq, nk)
     rows_in = 4 * b * nq * (1 + 1 + 1 + 1 + 3)  # m, l, D, d_sim, d_out
     theta_b, phi_b = 4 * b * nq * c, 4 * b * nk * c
     values_b = 4 * b * nk * 3
-
-    def pick(ops_ms, nbytes):
-        return {"bound_ms": max(ops_ms, byte_ms(nbytes)),
-                "bound_by": "operations" if ops_ms >= byte_ms(nbytes)
-                else "bytes"}
-
+    fma_rate = lambda score_flop, tc_flop, nbytes: max(
+        score_flop / PEAK_FP32_FLOPS, tc_flop / PEAK_TF32_FLOPS,
+        nbytes / PEAK_BYTES_PER_S) * 1e3
     return {
-        "pair": pick(max(score_ms, product_ms(2 * c + 3)),
-                     2 * theta_b + 2 * phi_b + 2 * values_b + rows_in),
-        "corr_bwd_dkv": pick(max(score_ms, product_ms(c + 3)),
-                             theta_b + 2 * phi_b + 2 * values_b + rows_in
-                             + df_bytes),
-        "corr_bwd_dq": pick(product_ms(c), df_bytes + phi_b + theta_b),
+        "pair": bound(2 * pairs * 3,
+                      2 * theta_b + 2 * phi_b + 2 * values_b + rows_in,
+                      3 * prod),
+        "corr_bwd_dkv": dict(
+            bound(2 * pairs * 3, theta_b + 2 * phi_b + 2 * values_b
+                  + rows_in + df_bytes, 2 * prod),
+            fma_rate_bound_ms=fma_rate(prod, 2 * pairs * (c + 3), theta_b
+                                       + 2 * phi_b + 2 * values_b + rows_in
+                                       + df_bytes)),
+        "dkv_scores": bound(2 * pairs * 3, theta_b + phi_b + 2 * values_b
+                            + rows_in + df_bytes, prod),
+        "dkv_product": bound(0, df_bytes + theta_b + phi_b, prod),
+        "corr_bwd_dq": bound(0, df_bytes + phi_b + theta_b, prod),
         "df_scratch_bytes": df_bytes,
     }
 
@@ -532,10 +662,60 @@ BWD_CASES = ((TRAIN_B, TRAIN_N, 256), (1, TRAIN_N, 256), (2, 4500, 96),
              (1, 520, 512), (1, 20736, 256))
 
 
+def bwd_float64(theta, phi, values, d_out, d_sim, temperature):
+    """The correspondence's gradients (dtheta, dphi, dvalues) at these
+    inputs in float64: the plain forward, then the plain backward on its
+    own residuals. The backward kernels are held to it: at T = 0.01 df
+    carries a score's round-off d as d / T^2, so two fp32 versions whose
+    scores are summed in different orders (the kernels' 3xTF32 tensor-core
+    sums, cuBLAS's fp32 product in the fp32 plain version) differ from
+    each other on a few rows by more than the bound, which the kernels
+    keep against float64 (the fp32 plain version does not at N =
+    20736)."""
+    from devc_tpu_torch.ops.correspondence import (
+        correspondence_bwd_plain,
+        correspondence_fwd_plain,
+    )
+
+    x = [t.double() for t in (theta, phi, values, d_out, d_sim)]
+    out, sim, l = correspondence_fwd_plain(x[0], x[1], x[2], temperature)
+    return correspondence_bwd_plain(x[0], x[1], x[2], sim, l, out, x[3], x[4],
+                                    temperature)
+
+
+def _k1_sim_is_k3_row_max(cuda_corr, theta, phi, values) -> dict:
+    """K1's sim equals the row max of K3's recomputed scores, bit for bit:
+    K3 at T = 1e-10 with d_out = 0 and d_sim = 1 writes df = 1[s == m],
+    NaN where one of its scores exceeds m (attn = inf times 0), and a row
+    whose m it never reaches has no 1."""
+    import torch
+
+    b, nq, _ = theta.shape
+    nk = phi.shape[1]
+    _, sim, l = cuda_corr.corr_fwd(theta, phi, values, 1e-10, emit_l=True)
+    df = torch.empty((b, cuda_corr.padded(nq), cuda_corr.padded(nk)),
+                     dtype=torch.float32, device=theta.device)
+    cuda_corr.corr_bwd_dkv(theta, phi, values, sim, l, torch.zeros_like(sim),
+                           torch.ones_like(sim),
+                           torch.zeros((b, nq, 3), device=theta.device),
+                           1e-10, df)
+    valid = df[:, :nq, :nk]
+    rec = {"rows": b * nq,
+           "entries_not_0_or_1": int(((valid != 0) & (valid != 1)).sum()),
+           "rows_without_max": int((valid.sum(-1) < 1).sum()),
+           "rows_with_tied_max": int((valid.sum(-1) > 1).sum())}
+    del df, valid
+    assert rec["entries_not_0_or_1"] == 0 and rec["rows_without_max"] == 0, \
+        rec
+    return rec
+
+
 def phase_bwd(seed: int):
-    """K2b and K3 vs their plain version on the card, two calls bit-equal,
-    a chunked run bit-equal to one chunk, and the sim-gradient routing
-    check. Returns the per-kernel summaries (without launches)."""
+    """K2b and K3 vs their plain version in float64 on the card (and,
+    beside it, the fp32 plain version's distance from both), two calls
+    bit-equal, a chunked run bit-equal to one chunk, K1's sim bit-equal to
+    the row max K3 finds, and the sim-gradient routing check. Returns the
+    per-kernel summaries (without launches)."""
     import numpy as np
     import torch
 
@@ -559,20 +739,30 @@ def phase_bwd(seed: int):
         args = (theta, phi, values, sim, l, out, d_out, d_sim, temperature)
         got = cuda_corr.corr_bwd(*args)
         again = cuda_corr.corr_bwd(*args)
-        want = correspondence_bwd_plain(*args)
+        plain32 = correspondence_bwd_plain(*args)
+        want = bwd_float64(theta, phi, values, d_out, d_sim, temperature)
         torch.cuda.synchronize()
-        errs = {}
-        for name, g, w, g2 in zip(("dtheta", "dphi", "dvalues"), got, want,
-                                  again):
-            errs[name] = (g - w).abs().max().item()
+        errs, errs32, plain32_errs = {}, {}, {}
+        for name, g, w, g2, p32 in zip(("dtheta", "dphi", "dvalues"), got,
+                                       want, again, plain32):
+            errs[name] = (g.double() - w).abs().max().item()
+            errs32[name] = (g - p32).abs().max().item()
+            plain32_errs[name] = (p32.double() - w).abs().max().item()
             # devc_tpu's bound for its Pallas VJP vs einsum autodiff
             # (tests/test_pallas_grad.py)
-            ok = bool(((g - w).abs() <= 5e-3 + 1e-3 * w.abs()).all())
+            ok = bool(((g.double() - w).abs() <= 5e-3 + 1e-3 * w.abs()).all())
             assert ok, (b, n, c, name, errs[name])
+            # and no farther from float64 than the fp32 plain version
+            assert errs[name] <= plain32_errs[name], (b, n, c, name, errs,
+                                                      plain32_errs)
             assert torch.equal(g, g2), (b, n, c, name, "second call differs")
+        del plain32
         bounds = bwd_bounds(b, n, n, c)
         case = {"check": "vs_plain", "b": b, "n": n, "c": c,
                 "temperature": temperature, "max_abs_err": errs,
+                "reference": "the plain versions in float64 (bwd_float64)",
+                "max_abs_err_vs_plain_fp32": errs32,
+                "plain_fp32_max_abs_err_vs_float64": plain32_errs,
                 "second_call": "bit-equal",
                 "df_scratch_bytes": bounds["df_scratch_bytes"],
                 "chunks": len(cuda_corr.plan_batch_chunks(b, n, n))}
@@ -583,6 +773,9 @@ def phase_bwd(seed: int):
             assert all(torch.equal(x, y) for x, y in zip(chunked, got))
             case["chunked_4x4"] = "bit-equal"
             del chunked
+        if b == TRAIN_B or c != 256:
+            case["k1_sim_is_k3_row_max"] = _k1_sim_is_k3_row_max(
+                cuda_corr, theta, phi, values)
         emit("bwd", **case)
         for kernel, outs in (("corr_bwd_dq", ("dtheta",)),
                              ("corr_bwd_dkv", ("dphi", "dvalues"))):
@@ -614,6 +807,20 @@ def _bwd_times(summary, cuda_corr, args, bounds, b, n, c):
                                   queued=True),
           "corr_bwd_dq": cuda_ms(lambda: cuda_corr.corr_bwd_dq(df, phi, n),
                                  queued=True)}
+    # K3's two halves, each launched alone (ROADMAP B6): the score pass
+    # (df, dvalues) and the product dphi = df^T theta
+    halves = (torch.empty_like(phi), torch.empty_like(values))
+    for half in ("scores", "product"):
+        ms[f"dkv_{half}"] = cuda_ms(lambda: cuda_corr.corr_bwd_dkv_part(
+            half, *kargs, *halves), queued=True)
+    del halves
+    # the score rule's pre-pass alone, on theta and phi as K1 and K3 each
+    # run it: B (Nq + Nk) C floats read, twice that written
+    split = {"ms": cuda_ms(lambda: (cuda_corr.split_tf32(theta),
+                                    cuda_corr.split_tf32(phi)), queued=True),
+             **bound(0, 12 * b * 2 * n * c)}
+    split["share_of_own_bound"] = split["bound_ms"] / split["ms"]
+    emit("bwd", check="split_tf32", b=b, n=n, c=c, **split)
     pair_ms = cuda_ms(lambda: cuda_corr.corr_bwd(*args), queued=True)
     plain_ms = cuda_ms(lambda: correspondence_bwd_plain(*args), queued=True)
     pair = bounds["pair"]
@@ -637,6 +844,10 @@ def _bwd_times(summary, cuda_corr, args, bounds, b, n, c):
     emit("bwd", check="products_vs_fp64_on_own_df", b=b, n=n, c=c,
          max_abs_err=prod_err)
     del dphi, dtheta
+    # K3's halves: ms, bound, share of the bound
+    halves = {half: {"ms": ms[half], **bounds[half],
+                     "share_of_own_bound": bounds[half]["bound_ms"] / ms[half]}
+              for half in ("dkv_scores", "dkv_product")}
     for kernel in ("corr_bwd_dkv", "corr_bwd_dq"):
         own = bounds[kernel]
         case = {"kernel": kernel, "b": b, "n": n, "c": c,
@@ -647,8 +858,12 @@ def _bwd_times(summary, cuda_corr, args, bounds, b, n, c):
                 "pair_share_of_bound": pair["bound_ms"] / pair_ms,
                 "plain_ms_both_outputs": plain_ms,
                 "df_scratch_bytes": bounds["df_scratch_bytes"]}
+        if kernel == "corr_bwd_dkv":
+            case["halves"] = halves
         emit("bwd", **case)
         if b == TRAIN_B:
+            if kernel == "corr_bwd_dkv":
+                summary[kernel].update(halves=halves, split_tf32=split)
             summary[kernel].update(
                 ms=ms[kernel], plain_ms=plain_ms,
                 plain_call="correspondence_bwd_plain: dtheta, dphi and "
@@ -962,41 +1177,15 @@ def _serve_kernels(rng, dev):
 def _k1_inference_case(rng, dev, b: int, n: int, shared: bool, phase: str,
                        check: str):
     """K1 at T = 1e-10 (inference) on [b, n, 256] against its plain
-    version: sim within 1e-5, every row's out equal; ms, plain ms, SDPA's
-    ms and the bound. shared: theta one frame's, repeated over b."""
-    import torch
-
-    from devc_tpu_torch.ops.correspondence import correspondence_warp_einsum
-    from devc_tpu_torch.ops.cuda_corr import corr_fwd
-
+    version (`_k1_case`), with no row differing; ms, plain ms, SDPA's ms
+    and the bound. shared: theta one frame's, repeated over b."""
     theta, phi, values = _k1_inputs(rng, b, n, dev)
     if shared:
         theta = theta[:1].expand(b, n, 256).contiguous()
-    out, sim, _ = corr_fwd(theta, phi, values, 1e-10)
-    want_out, want_sim = correspondence_warp_einsum(theta, phi, values,
-                                                    1e-10)
-    torch.cuda.synchronize()
-    sim_err = (sim - want_sim).abs().max().item()
-    differing = int(((out - want_out).abs().amax(dim=-1) > 1e-4).sum())
-    case = {"check": check, "kernel": "corr_fwd", "b": b, "n": n,
-            "c": 256, "temperature": 1e-10,
-            "theta": "one frame's, repeated" if shared else "per sample",
-            "sim_max_abs_err": sim_err, "rows_differing": differing,
-            "max_abs_err": sim_err}
-    assert sim_err <= 1e-5 and differing == 0, case
-    case["ms"] = cuda_ms(lambda: corr_fwd(theta, phi, values, 1e-10),
-                         queued=True)
-    case["plain_ms"] = cuda_ms(lambda: correspondence_warp_einsum(
-        theta, phi, values, 1e-10), queued=True)
-    case["library_ms"], case["library_call"] = sdpa_ms(
-        theta, phi, values, 1e-10)
-    flop = 2 * b * n * n * 259
-    # theta, phi, values read once, out and sim written once
-    case.update(bound(flop, 4 * b * n * (2 * 256 + 3 + 4)))
-    case["gflop_per_s"] = flop / case["ms"] / 1e6
+    case = dict(_k1_case(theta, phi, values, 1e-10), check=check, n=n,
+                theta="one frame's, repeated" if shared else "per sample")
     emit(phase, **case)
-    del theta, phi, values, out, sim, want_out, want_sim
-    torch.cuda.empty_cache()
+    assert case["rows_differing"] == 0, case
     return case
 
 
@@ -2346,35 +2535,6 @@ def phase_convergence(seed: int, card: str):
     return k1, k2, rec["launches"]
 
 
-def sdpa_bf16_ms(theta, phi, values, temperature):
-    """Time of one PyTorch call computing K1's out on bf16 inputs: SDPA
-    with scale 1/T on the first fused backend that takes them, the values
-    as they are (width 3) or, where every fused backend refuses that
-    width, zero-padded to 8; the MATH backend last. Returns (ms, "backend
-    name", value width)."""
-    import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    q, k = theta[:, None], phi[:, None]  # one head
-    fused = (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
-             SDPBackend.CUDNN_ATTENTION)
-    for width, backends in ((3, fused), (8, fused), (3, (SDPBackend.MATH,))):
-        v = F.pad(values, (0, width - 3))[:, None]
-        for backend in backends:
-            call = lambda: F.scaled_dot_product_attention(
-                q, k, v, scale=1.0 / temperature)
-            with sdpa_kernel([backend]):
-                try:  # a backend that refuses these inputs raises at once
-                    call()
-                except RuntimeError:
-                    continue
-                return (cuda_ms(call, queued=True),
-                        f"F.scaled_dot_product_attention ({backend.name})",
-                        width)
-    raise RuntimeError("no SDPA backend ran")
-
-
 def k1_bf16_bound(b: int, n: int, c: int = 256) -> dict:
     """K1 on bf16 embeddings: the score and value products at the card's
     bf16 tensor rate, against its bytes (theta, phi, values read once in
@@ -2468,8 +2628,7 @@ def _k1_bf16_cases(rng, dev):
             lambda: corr_fwd(*up, t), queued=True)
         case["plain_ms"] = cuda_ms(lambda: correspondence_warp_einsum(
             theta, phi, values, t), queued=True)
-        (case["library_ms"], case["library_call"],
-         case["library_value_width"]) = sdpa_bf16_ms(theta, phi, values, t)
+        case.update(sdpa_ms(theta, phi, values, t))
         case.update(k1_bf16_bound(1, n))
         emit("bf16", **case)
         rows.append(case)
@@ -2769,13 +2928,6 @@ def _par_k1_inputs(seed: int, n: int, dev):
     return _k1_inputs(np.random.RandomState(seed + n), 1, n, dev)
 
 
-def _par_k1_bound(nq: int, nk: int, emit_l: bool, b: int = 1) -> dict:
-    """K1's bound at one shard's shape: 2 b nq nk 259 operations; theta,
-    phi, values read once, out and sim (and l) written once."""
-    return bound(2 * b * nq * nk * 259,
-                 4 * b * (nq * 256 + nk * (256 + 3) + nq * (4 + emit_l)))
-
-
 def _par_train_kernels(seed: int):
     """K1 (with l, as training runs it), K3 and K2b at one rank's half of
     the training batch (B = 8, N = 5184, C = 256, T = 0.01), on the card
@@ -2785,10 +2937,7 @@ def _par_train_kernels(seed: int):
     import torch
 
     from devc_tpu_torch.ops import cuda_corr
-    from devc_tpu_torch.ops.correspondence import (
-        correspondence_bwd_plain,
-        correspondence_fwd_plain,
-    )
+    from devc_tpu_torch.ops.correspondence import correspondence_bwd_plain
 
     rng = np.random.RandomState(seed + 70)
     b, n, c, t = TRAIN_B // PAR_WORLD, TRAIN_N, 256, 0.01
@@ -2798,27 +2947,23 @@ def _par_train_kernels(seed: int):
     d_sim = rng.randn(b, n, 1).astype(np.float32)
     theta, phi, values, d_out, d_sim = (torch.from_numpy(x).cuda() for x in
                                         (theta, phi, values, d_out, d_sim))
+    # K1 as training runs it, at T = 0.01 with l (`_k1_case`)
+    k1 = dict(_k1_case(theta, phi, values, t, emit_l=True),
+              kind="train_shard", n=n)
     out, sim, l = cuda_corr.corr_fwd(theta, phi, values, t, emit_l=True)
-    p_out, p_sim, _ = correspondence_fwd_plain(theta, phi, values, t)
-    fwd_err = max((out - p_out).abs().max().item(),
-                  (sim - p_sim).abs().max().item())
-    assert fwd_err <= 1e-3, fwd_err  # phase kernels' bound at T = 0.01
-    del p_out, p_sim
     args = (theta, phi, values, sim, l, out, d_out, d_sim, t)
     errs = {}
-    for name, g, w in zip(("dtheta", "dphi", "dvalues"),
-                          cuda_corr.corr_bwd(*args),
-                          correspondence_bwd_plain(*args)):
-        errs[name] = (g - w).abs().max().item()
-        assert bool(((g - w).abs() <= 5e-3 + 1e-3 * w.abs()).all()), name
-    k1 = {"kind": "train_shard", "b": b, "n": n, "nq": n, "nk": n, "c": c,
-          "temperature": t, "emit_l": True, "max_abs_err": fwd_err,
-          "ms": cuda_ms(lambda: cuda_corr.corr_fwd(theta, phi, values, t,
-                                                   emit_l=True), queued=True),
-          "plain_ms": cuda_ms(lambda: correspondence_fwd_plain(
-              theta, phi, values, t), queued=True),
-          **_par_k1_bound(n, n, True, b)}
-    k1["library_ms"], k1["library_call"] = sdpa_ms(theta, phi, values, t)
+    # against the gradients in float64, as phase bwd, and no farther from
+    # them than the fp32 plain version
+    for name, g, w, p32 in zip(("dtheta", "dphi", "dvalues"),
+                               cuda_corr.corr_bwd(*args),
+                               bwd_float64(theta, phi, values, d_out, d_sim,
+                                           t),
+                               correspondence_bwd_plain(*args)):
+        errs[name] = (g.double() - w).abs().max().item()
+        assert bool(((g.double() - w).abs() <= 5e-3 + 1e-3 * w.abs()).all()), \
+            name
+        assert errs[name] <= (p32.double() - w).abs().max().item(), name
     dd = (d_out * out).sum(dim=-1, keepdim=True)
     df = torch.empty((b, cuda_corr.padded(n), cuda_corr.padded(n)),
                      dtype=torch.float32, device=theta.device)
@@ -2844,15 +2989,13 @@ def _par_train_kernels(seed: int):
 
 def _par_k1_reference(seed: int):
     """In this process, per N: unsharded K1 and the plain version at
-    PAR_K1_T (numpy, for the ranks to hold their results against), and K1
-    alone at the two shard shapes (rows: N/2 queries, all keys; keys: all
-    queries, N/2 keys with l) with its plain version and SDPA."""
+    PAR_K1_T (sim in fp32, out in float64; numpy, for the ranks to hold
+    their results against), and K1 alone at the two shard shapes (rows:
+    N/2 queries, all keys; keys: all queries, N/2 keys with l) against its
+    plain version, with ms, SDPA and the bound (`_k1_case`)."""
     import torch
 
-    from devc_tpu_torch.ops.correspondence import (
-        correspondence_fwd_plain,
-        correspondence_warp_einsum,
-    )
+    from devc_tpu_torch.ops.correspondence import correspondence_warp_einsum
     from devc_tpu_torch.ops.cuda_corr import corr_fwd
 
     refs, rows = {}, []
@@ -2860,32 +3003,22 @@ def _par_k1_reference(seed: int):
         theta, phi, values = _par_k1_inputs(seed, n, "cuda")
         for t in PAR_K1_T:
             out, sim, _ = corr_fwd(theta, phi, values, t)
-            p_out, p_sim = correspondence_warp_einsum(theta, phi, values, t)
+            _, p_sim = correspondence_warp_einsum(theta, phi, values, t)
+            # out against the plain version in float64, as phase kernels
+            p_out, _ = correspondence_warp_einsum(
+                theta.double(), phi.double(), values.double(), t)
             refs[(n, t)] = {k: v.cpu().numpy() for k, v in (
                 ("out", out), ("sim", sim), ("plain_out", p_out),
                 ("plain_sim", p_sim))}
             del out, sim, p_out, p_sim
+        # the shards (`_k1_case`): rows, N/2 queries against all keys;
+        # keys, all queries against N/2 keys with l
         h, t = n // 2, PAR_K1_T[-1]
-        shards = {
-            "rows": (lambda: corr_fwd(theta[:, :h], phi, values, t),
-                     lambda: correspondence_warp_einsum(theta[:, :h], phi,
-                                                        values, t),
-                     (theta[:, :h], phi, values), n // 2, n, False),
-            "keys": (lambda: corr_fwd(theta, phi[:, :h], values[:, :h], t,
-                                      emit_l=True),
-                     lambda: correspondence_fwd_plain(theta, phi[:, :h],
-                                                      values[:, :h], t),
-                     (theta, phi[:, :h], values[:, :h]), n, n // 2, True)}
-        for kind, (kernel, plain, args, nq, nk, emit_l) in shards.items():
-            row = {"kind": kind, "b": 1, "n": n, "nq": nq, "nk": nk,
-                   "c": 256, "temperature": t, "emit_l": emit_l,
-                   "ms": cuda_ms(kernel, queued=True),
-                   "plain_ms": cuda_ms(plain, queued=True)}
-            row["library_ms"], row["library_call"] = sdpa_ms(
-                *(a.contiguous() for a in args), t)
-            row.update(_par_k1_bound(nq, nk, emit_l))
-            rows.append(row)
-            torch.cuda.empty_cache()
+        for kind, args, emit_l in (
+                ("rows", (theta[:, :h], phi, values), False),
+                ("keys", (theta, phi[:, :h], values[:, :h]), True)):
+            rows.append(dict(_k1_case(*(a.contiguous() for a in args), t,
+                                      emit_l), kind=kind, n=n))
         del theta, phi, values
         torch.cuda.empty_cache()
     return refs, rows
@@ -3200,9 +3333,9 @@ def phase_parallel(seed: int, card: str, fp32_noise: dict):
         cases = [c for r in inf for c in r["k1"]
                  if c["kind"] == row["kind"] and c["n"] == row["n"]]
         row["ms_sharded_call_per_rank"] = [c["ms_per_rank"] for c in cases]
-        row["max_abs_err"] = max(max(c["out_max_abs_err_vs_plain_t0.01"],
-                                     c["sim_max_abs_err_vs_plain_t0.01"])
-                                 for c in cases)
+        row["max_abs_err"] = max([row["max_abs_err"]] + [
+            max(c["out_max_abs_err_vs_plain_t0.01"],
+                c["sim_max_abs_err_vs_plain_t0.01"]) for c in cases])
         emit("parallel", check="k1_shard_shape", card=card, **row)
     r0 = inf[0]
     emit("parallel", check="frames_and_batched_step", hw=[H, W],
@@ -3367,12 +3500,13 @@ def main(argv=None) -> int:
 
     # the serving path's shapes beside each kernel's own
     pick = ("b", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    k1_pick = pick + ("library_ms", "library_call", "library_value_width",
+                      "fma_rate_bound_ms")
     for row in k1["by_shape"]:
         row["dtype"] = "float32"
-    k1["by_shape"] += [dict({k: c[k] for k in pick}, n=c["n"],
+    k1["by_shape"] += [dict({k: c[k] for k in k1_pick}, n=c["n"],
                             temperature=1e-10, theta=c["theta"],
-                            library_ms=c["library_ms"], path="serve",
-                            dtype="float32")
+                            path="serve", dtype="float32")
                        for c in k1_serve]
     # the shard shapes of the parallel layer (K1 alone on the card; the
     # sharded call's ms on each of the two ranks beside it), and a rank's
@@ -3385,9 +3519,8 @@ def main(argv=None) -> int:
         bwd[name]["max_abs_err"] = max(bwd[name]["max_abs_err"],
                                        row["max_abs_err"])
     # the convergence demo's held-out evaluation at 224x384 (N = 1344)
-    k1["by_shape"].append(dict({k: k1_conv[k] for k in pick}, n=k1_conv["n"],
-                               temperature=1e-10,
-                               library_ms=k1_conv["library_ms"],
+    k1["by_shape"].append(dict({k: k1_conv[k] for k in k1_pick},
+                               n=k1_conv["n"], temperature=1e-10,
                                path="convergence", dtype="float32"))
     k1["max_abs_err"] = max([k1["max_abs_err"]]
                             + [c["max_abs_err"]

@@ -15,29 +15,34 @@
 // taken once per row (an IEEE division), so attn may differ from
 // exp(..) / l in its last bit.
 //
-// What bounds it on the H100: arithmetic. The score pass is 2 N^2 C FLOP
-// per sample that must be fp32 FMAs in K1's order: the backward finds K1's
-// row max by the exact test s == m, so every score goes through
-// corr_score_step (corr_common.cuh), channels ascending from 0.f, one fmaf
-// each, and the tensor cores (another summation order, and TF32 inputs)
-// are out for it. At B = 16, N = 5184, C = 256 that pass alone is 3.29 ms
-// at the 67 TFLOP/s fp32 peak. The three products (2 N^2 (2C + 3) FLOP)
-// need no fixed order, so the two large ones run on the tensor cores,
-// where their ceiling is 495 TFLOP/s (TF32) instead of 67.
+// What bounds it on the H100: arithmetic on the tensor cores. The score
+// pass recomputes 2 N^2 C FLOP per sample; the backward finds K1's row max
+// by the exact test s == m, so every score is formed by K1's fp32 score
+// rule (corr_score.cuh: 3xTF32 wgmma, 32-channel atoms added in fp32, the
+// same instruction shape, operand roles and places as in K1). The two
+// large products, 2 N^2 C FLOP each, need no fixed order. Each of the
+// three is fp32-accurate on the TF32 tensor cores: three passes at 495
+// TFLOP/s, 1.33 ms apiece at B = 16, N = 5184, C = 256. Beside them
+// the score pass does an expf and ~12 FMAs a score (attn, df, dvalues) and
+// writes the df scratch, 4 bytes a score (1.76 GB at that shape, 0.53 ms
+// at the memory rate).
 //
 // The design:
-//   * corr_dkv_scores_kernel forms every score once. A block keeps a tile
-//     of 128 keys (phi rows, padded to C + 4 floats, and their values)
-//     resident in shared memory and streams 128-query tiles through a
-//     2-stage cp.async ring of 64-channel stages (K1's pipeline with the
-//     roles of queries and keys swapped; a tile's packed row constants
-//     ride with its last chunk). 256 threads, each with an 8 x 8 register
-//     tile of scores (queries ty + 16 i, keys tx + 16 j). On a finished
-//     tile it forms attn and df, adds attn . dout into per-key registers
-//     (dvalues: 3 FMAs a score), and writes df to a scratch array
-//     [B, Nq', Nk'] (Nq', Nk' rounded up to 128; zero outside the valid
-//     rows and keys). Above C = 288 the key tile no longer fits beside the
-//     ring and streams through it too, as K1's query tile does.
+//   * corr_dkv_scores_kernel forms every score once, on K1's skeleton
+//     (corr_fwd.cu) with the roles turned: a block owns a tile of 128 keys
+//     (the wgmma's B, N side) and streams 128-query tiles (two warpgroups
+//     of 64 rows, the A side) through a 3-stage ring of TMA stages, each
+//     one 32-channel atom of the queries and one of the block's keys, hi
+//     and lo (64 KB: in hi and lo, 128 keys of C = 256 take 256 KB, more
+//     than a block has, so the keys come again from L2 for every query
+//     tile). The queries' and keys' halves come from the split pre-pass
+//     over theta and phi. On a finished tile it forms attn and df on the
+//     accumulator registers (the query's m, 1 / l, D, dsim and dout read
+//     once per row from a packed [B, Nq', 8] array), writes df to a
+//     scratch array [B, Nq', Nk'] (Nq', Nk' rounded up to 128; zero
+//     outside the valid rows and keys), and sums attn . dout for dvalues:
+//     over a warp's 8 lanes of a key by shuffles, into the warp's row of
+//     shared memory, and over the 8 warps in warp order at the end.
 //   * corr_dkv_product_kernel (dphi = df^T theta) and
 //     corr_dq_product_kernel (dtheta = df phi) read that scratch and run
 //     on the tensor cores with mma.sync.m16n8k8 in 3xTF32: each fp32
@@ -57,15 +62,18 @@
 //     (the queries of the score pass for dvalues, the depth of a product,
 //     when too few tiles fill the SMs), each block writes a partial and
 //     sum_splits_kernel adds them in split order.
-// Any C % 32 == 0: a last 32-channel chunk is half a stage; the products
-// zero-fill the columns past C.
+// Any C % 32 == 0 (whole 32-channel atoms); the products zero-fill the
+// columns past C.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-#include "corr_common.cuh"
+#include "corr_score.cuh"
 
 namespace {
+
+using namespace devc;
 
 constexpr int V = 3;
 constexpr int THREADS = 256;
@@ -92,49 +100,37 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ------------------------------------------------------------- score pass
 
-constexpr int TQ = 128;      // queries per streamed tile
-constexpr int TK = 128;      // keys per block (resident)
-constexpr int CK = 64;       // channels per ring stage
-constexpr int CH = 32;       // channels per compute step (C % CH == 0)
-constexpr int STAGES = 2;    // ring depth: one stage in flight
-constexpr int QI = TQ / 16;  // a thread's queries: ty + 16 i, i < QI
-constexpr int KJ = TK / 16;  // a thread's keys: tx + 16 j, j < KJ
-constexpr int LD = CK + 4;   // padded row stride of a staged chunk
+constexpr int TQ = 128;      // queries per streamed tile: a warpgroup per 64
+constexpr int TK = 128;      // keys per block: the wgmma's N
+constexpr int CK = 32;       // channels per atom: one 128-byte fp32 row
+constexpr int STAGES = 3;    // ring depth: two stages in flight
+constexpr int Q_ATOM = TQ * 128;  // bytes of a query atom (hi or lo)
+constexpr int K_ATOM = TK * 128;  // bytes of a key atom (hi or lo)
+constexpr int STAGE = 2 * Q_ATOM + 2 * K_ATOM;  // q hi, q lo, k hi, k lo
+constexpr int ALIGN = 1024;  // an atom's base alignment (the swizzle's repeat)
+constexpr int WARPS = THREADS / 32;
 constexpr int RC = 8;        // packed row constants: m, 1/l, D, dsim, dout[3], 0
-constexpr int RESIDENT_MAX_C = 288;  // the largest C whose key tile fits
 constexpr int PAD = 128;     // Nq', Nk': rounded up to this
+constexpr unsigned kFull = 0xffffffffu;
+
+static_assert(TQ == 2 * kScoreRows && TK == kScoreKeys && CK == kScoreAtom &&
+                  THREADS == 2 * 128,
+              "the score rule's tile, as K1's: two warpgroups of 64 query "
+              "rows, 128 keys, 32-channel atoms");
+static_assert(TQ == PAD && TK == PAD, "tiles cover the padded scratch");
 
 __host__ __device__ constexpr int round_up(int n, int m) {
   return (n + m - 1) / m * m;
 }
 
-__host__ __device__ constexpr int k_floats(bool resident, int c) {
-  return resident ? TK * (c + 4) : STAGES * TK * LD;
+// Dynamic shared memory of the score pass: slack to align the atoms, the
+// ring of stages, the block's values [TK][V], each warp's dvalues sums
+// [WARPS][TK][V] and an mbarrier per stage.
+constexpr size_t scores_smem_bytes() {
+  return (size_t)ALIGN + (size_t)STAGES * STAGE +
+         sizeof(float) * (TK * V + WARPS * TK * V) + 8 * STAGES;
 }
-
-size_t scores_smem_bytes(bool resident, int c) {
-  return sizeof(float) * ((size_t)k_floats(resident, c) + STAGES * TQ * LD +
-                          STAGES * TQ * RC + TK * V);
-}
-
-// Copy rows [r0, r0 + rows) x channels [c0, c0 + width) of a row-major
-// [n, c] matrix into dst[rows][ld], dst[0][0] holding channel c0; rows
-// past n are zero. width is a multiple of CH.
-__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src,
-                                           int r0, int rows, int n, int c,
-                                           int c0, int width) {
-  constexpr int W4 = CH / 4;  // 16-byte pieces of a row's CH channels
-  for (int h = 0; h < width; h += CH) {
-    for (int i = threadIdx.x; i < rows * W4; i += THREADS) {
-      const int r = i / W4;
-      const int c4 = i % W4;
-      const bool in = r0 + r < n;
-      cp_async16(dst + r * ld + h + 4 * c4,
-                 in ? src + (size_t)(r0 + r) * c + c0 + h + 4 * c4 : src,
-                 in ? 16 : 0);
-    }
-  }
-}
+static_assert(scores_smem_bytes() <= 232448, "one block's shared memory");
 
 // rows[b][q] = (m, 1 / l, D, dsim, dout[0..2], 0) for q < nq, zeros up to
 // nq_pad.
@@ -164,172 +160,162 @@ __global__ void corr_dkv_rows_kernel(const float* __restrict__ m,
 // One block: the TK keys of tile blockIdx.x against the query tiles of
 // split blockIdx.y. Writes df[b][q][k] for the block's keys and every
 // query of its tiles (0 outside q < nq, k < nk), and its dvalues sums to
-// dv_out[split][b][k][V].
-template <bool kResident>
+// dv_out[split][b][k][V]. q_map / k_map: the split [B, N, 2c] theta and
+// phi (corr_score.cuh), boxes of 32 channels x 128 rows.
 __global__ void __launch_bounds__(THREADS, 1)
-corr_dkv_scores_kernel(const float* __restrict__ theta,
-                       const float* __restrict__ phi,
+corr_dkv_scores_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
                        const float* __restrict__ values,
                        const float* __restrict__ rows,
                        float* __restrict__ df, float* __restrict__ dv_out,
                        int nq, int nk, int c, int tiles_per_split,
                        float inv_t) {
-  extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;  // resident [TK][c + 4], or [STAGES][TK][LD]
-  float* q_s = smem + k_floats(kResident, c);  // [STAGES][TQ][LD]
-  float* r_s = q_s + STAGES * TQ * LD;         // [STAGES][TQ][RC]
-  float* v_s = r_s + STAGES * TQ * RC;         // [TK][V]
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + ALIGN - 1) & ~(uint32_t)(ALIGN - 1);
+  float* v_s = reinterpret_cast<float*>(smem_raw + (base - raw) +
+                                        STAGES * STAGE);  // [TK][V]
+  float* dv_s = v_s + TK * V;  // [WARPS][TK][V]
+  const uint32_t bars = smem_u32(dv_s + WARPS * TK * V);  // full[STAGES]
 
   const int nq_pad = round_up(nq, PAD);
   const int nk_pad = round_up(nk, PAD);
+  const int cpt = c / CK;  // atoms per query tile
   const int b = blockIdx.z;
   const int k0 = blockIdx.x * TK;
   const int q_begin = blockIdx.y * tiles_per_split * TQ;
   const int q_end = min(nq_pad, q_begin + tiles_per_split * TQ);
-  const float* th_g = theta + (size_t)b * nq * c;
-  const float* ph_g = phi + (size_t)b * nk * c;
+  const int n_chunks = (q_end - q_begin) / TQ * cpt;
   const float* r_g = rows + (size_t)b * nq_pad * RC;
   float* df_g = df + (size_t)b * nq_pad * nk_pad;
 
-  const int ty = threadIdx.x / 16;  // queries ty + 16 i
-  const int tx = threadIdx.x % 16;  // keys tx + 16 j
-  const int cpt = (c + CK - 1) / CK;  // chunks per query tile; the last
-                                     // may hold CH channels of CK
-  const int n_chunks = (q_end - q_begin) / TQ * cpt;
-
-  // Fill ring slot g % STAGES with chunk g (query tile g / cpt, channels
-  // (g % cpt) CK ..), and with the tile's row constants on its last
-  // chunk. Always commits a group, empty past the end.
-  auto fill_stage = [&](int g) {
-    if (g < n_chunks) {
-      const int slot = g % STAGES;
-      const int q0 = q_begin + g / cpt * TQ;
-      const int c0 = g % cpt * CK;
-      const int cw = min(CK, c - c0);
-      stage_rows(q_s + slot * TQ * LD, LD, th_g, q0, TQ, nq, c, c0, cw);
-      if (!kResident)
-        stage_rows(k_s + slot * TK * LD, LD, ph_g, k0, TK, nk, c, c0, cw);
-      if (g % cpt == cpt - 1) {
-        for (int i = threadIdx.x; i < TQ * RC / 4; i += THREADS)
-          cp_async16(r_s + slot * TQ * RC + 4 * i,
-                     r_g + (size_t)q0 * RC + 4 * i, 16);
-      }
-    }
-    cp_async_commit();
+  // Thread 0 fills ring slot g % STAGES with atom g (query tile g / cpt,
+  // channels (g % cpt) CK ..) of the queries and of the block's keys, hi
+  // and lo.
+  auto fill = [&](int g) {
+    if (g >= n_chunks) return;
+    const int slot = g % STAGES;
+    const uint32_t st = base + slot * STAGE;
+    const uint32_t bar = bars + 8 * slot;
+    const int q0 = q_begin + g / cpt * TQ;
+    const int c0 = g % cpt * CK;
+    mbar_arrive_expect_tx(bar, STAGE);
+    tma_load(st, &q_map, bar, c0, q0, b);
+    tma_load(st + Q_ATOM, &q_map, bar, c + c0, q0, b);
+    tma_load(st + 2 * Q_ATOM, &k_map, bar, c0, k0, b);
+    tma_load(st + 2 * Q_ATOM + K_ATOM, &k_map, bar, c + c0, k0, b);
   };
 
-  if (kResident) stage_rows(k_s, c + 4, ph_g, k0, TK, nk, c, 0, c);
+  if (threadIdx.x == 0) mbar_init_all(bars, STAGES);
   for (int i = threadIdx.x; i < TK * V; i += THREADS)
     v_s[i] = ((size_t)k0 * V + i < (size_t)nk * V)
                  ? values[((size_t)b * nk + k0) * V + i] : 0.f;
-  // the key tile's copies join chunk 0's group; the values' stores are
-  // seen after the loop's first barrier
-#pragma unroll
-  for (int g = 0; g < STAGES - 1; ++g) fill_stage(g);
+  for (int i = threadIdx.x; i < WARPS * TK * V; i += THREADS) dv_s[i] = 0.f;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int g = 0; g < STAGES - 1; ++g) fill(g);
 
-  float s[QI][KJ], dv[KJ][V];
-  bool k_ok[KJ];
+  const int wg = threadIdx.x / 128;  // query rows 64 wg .. 64 wg + 63
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int col0 = 2 * (lane % 4);
+  float* dv_w = dv_s + threadIdx.x / 32 * TK * V;  // this warp's sums
+  // wgmma's accumulator layout, as in K1: s[4 j + 2 h + e] is the score of
+  // query row 16 warp + lane / 4 + 8 h of the warpgroup's 64 and key
+  // column 8 j + col0 + e of the block's tile
+  float s[64], p[64];
 #pragma unroll
-  for (int j = 0; j < KJ; ++j) {
-    k_ok[j] = k0 + tx + 16 * j < nk;
-#pragma unroll
-    for (int v = 0; v < V; ++v) dv[j][v] = 0.f;
-#pragma unroll
-    for (int i = 0; i < QI; ++i) s[i][j] = 0.f;
-  }
+  for (int i = 0; i < 64; ++i) s[i] = p[i] = 0.f;
 
   for (int g = 0; g < n_chunks; ++g) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk g landed
-    __syncthreads();  // everyone's have, and everyone is done with g - 1
-    fill_stage(g + STAGES - 1);  // into the slot chunk g - 1 used
     const int slot = g % STAGES;
-    const int ch = g % cpt;
-    const int cw = min(CK, c - ch * CK);
-    const float* kb = kResident ? k_s + ch * CK : k_s + slot * TK * LD;
-    const int k_ld = kResident ? c + 4 : LD;
-    const float* qb = q_s + slot * TQ * LD;
-#pragma unroll
-    for (int h = 0; h < CK; h += CH) {
-      if (h >= cw) break;  // a last chunk of CH channels
-#pragma unroll
-      for (int cc = h; cc < h + CH; cc += 4) {
-        float4 kv[KJ];
-#pragma unroll
-        for (int j = 0; j < KJ; ++j)
-          kv[j] = *reinterpret_cast<const float4*>(kb + (tx + 16 * j) * k_ld + cc);
-#pragma unroll
-        for (int i = 0; i < QI; ++i) {
-          const float4 qv =
-              *reinterpret_cast<const float4*>(qb + (ty + 16 * i) * LD + cc);
-#pragma unroll
-          for (int j = 0; j < KJ; ++j) {
-            float x = s[i][j];
-            x = corr_score_step(x, qv.x, kv[j].x);
-            x = corr_score_step(x, qv.y, kv[j].y);
-            x = corr_score_step(x, qv.z, kv[j].z);
-            s[i][j] = corr_score_step(x, qv.w, kv[j].w);
-          }
-        }
-      }
-    }
-    if (ch != cpt - 1) continue;
+    mbar_wait(bars + 8 * slot, (g / STAGES) & 1);  // atom g landed
+    __syncthreads();  // and everyone is done with atom g - 1
+    if (threadIdx.x == 0) fill(g + STAGES - 1);  // into atom g - 1's slot
+    __syncwarp();
+    const uint32_t st = base + slot * STAGE;
+    const uint32_t qrows = wg * kScoreRows * 128;  // the warpgroup's rows
+    score_atom(s, p, st + qrows, st + Q_ATOM + qrows, st + 2 * Q_ATOM,
+               st + 2 * Q_ATOM + K_ATOM);
+    if (g % cpt != cpt - 1) continue;
 
     // the query tile's scores are complete: attn, df and dvalues on the
-    // register tile; a warp's 16 lanes of one query row store 16
-    // consecutive keys of df
+    // accumulator. A lane holds two rows (h) and 32 keys (j, e).
     const int q0 = q_begin + g / cpt * TQ;
-    const float* rb = r_s + slot * TQ * RC;
+    float rm[2], rinv_l[2], rdd[2], rdsim[2], rdout[2][V];
+    bool q_ok[2];
+    float* dst[2];
 #pragma unroll
-    for (int i = 0; i < QI; ++i) {
-      const int ql = ty + 16 * i;
-      const float4 ra = *reinterpret_cast<const float4*>(rb + ql * RC);
-      const float4 rd = *reinterpret_cast<const float4*>(rb + ql * RC + 4);
-      const bool q_ok = q0 + ql < nq;
-      float* dst = df_g + (size_t)(q0 + ql) * nk_pad + k0 + tx;
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        float d = 0.f;
-        if (q_ok && k_ok[j]) {
-          const float* v = v_s + (tx + 16 * j) * V;
-          const float attn = expf((s[i][j] - ra.x) * inv_t) * ra.y;
-          const float dps = rd.x * v[0] + rd.y * v[1] + rd.z * v[2];
-          d = attn * (dps - ra.z) * inv_t;
-          if (s[i][j] == ra.x) d += ra.w;
-          dv[j][0] = fmaf(attn, rd.x, dv[j][0]);
-          dv[j][1] = fmaf(attn, rd.y, dv[j][1]);
-          dv[j][2] = fmaf(attn, rd.z, dv[j][2]);
-        }
-        dst[16 * j] = d;
-        s[i][j] = 0.f;
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int q = q0 + 64 * wg + 16 * warp + lane / 4 + 8 * h;
+      const float4 ra = *reinterpret_cast<const float4*>(r_g + q * RC);
+      const float4 rd = *reinterpret_cast<const float4*>(r_g + q * RC + 4);
+      rm[h] = ra.x;
+      rinv_l[h] = ra.y;
+      rdd[h] = ra.z;
+      rdsim[h] = ra.w;
+      rdout[h][0] = rd.x;
+      rdout[h][1] = rd.y;
+      rdout[h][2] = rd.z;
+      q_ok[h] = q < nq;
+      dst[h] = df_g + (size_t)q * nk_pad + k0 + col0;
     }
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j) {
+      float d[2][2], dvx[2][V];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + col0 + e;
+        const bool k_ok = k0 + col < nk;
+        const float* vk = v_s + col * V;
+#pragma unroll
+        for (int v = 0; v < V; ++v) dvx[e][v] = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float x = 0.f;
+          if (q_ok[h] && k_ok) {
+            const float sc = s[4 * j + 2 * h + e];
+            const float attn = expf((sc - rm[h]) * inv_t) * rinv_l[h];
+            const float dps = rdout[h][0] * vk[0] + rdout[h][1] * vk[1] +
+                              rdout[h][2] * vk[2];
+            x = attn * (dps - rdd[h]) * inv_t;
+            if (sc == rm[h]) x += rdsim[h];
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              dvx[e][v] = fmaf(attn, rdout[h][v], dvx[e][v]);
+          }
+          d[h][e] = x;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(dst[h] + 8 * j) =
+            make_float2(d[h][0], d[h][1]);
+      // dvalues: sum over the warp's 8 lanes of each key (lanes that share
+      // lane % 4), then lane lane % 4 adds it to the warp's sums
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          float x = dvx[e][v];
+          x += __shfl_xor_sync(kFull, x, 4);
+          x += __shfl_xor_sync(kFull, x, 8);
+          x += __shfl_xor_sync(kFull, x, 16);
+          if (lane < 4) dv_w[(8 * j + col0 + e) * V + v] += x;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;  // the next tile's scores
   }
-  cp_async_wait<0>();
 
-  // dvalues: the 16 ty of the block saw disjoint queries of the same
-  // keys. Lanes tx and tx + 16 of a warp first, then the 8 warps through
-  // shared memory (the ring, no longer read), in warp order.
-#pragma unroll
-  for (int j = 0; j < KJ; ++j)
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-      dv[j][v] += __shfl_xor_sync(0xffffffffu, dv[j][v], 16);
-  __syncthreads();
-  float* red = q_s;  // [8 warps][TK][V]
-  const int warp = threadIdx.x / 32;
-  if (threadIdx.x % 32 < 16) {
-#pragma unroll
-    for (int j = 0; j < KJ; ++j)
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        red[(warp * TK + tx + 16 * j) * V + v] = dv[j][v];
-  }
+  // dvalues: the warps saw disjoint queries of the same keys; their sums
+  // are added in warp order
   __syncthreads();
   float* dv_g = dv_out + ((size_t)blockIdx.y * gridDim.z + b) * nk * V;
   for (int i = threadIdx.x; i < TK * V; i += THREADS) {
     float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) a += red[w * TK * V + i];
+    for (int w = 0; w < WARPS; ++w) a += dv_s[w * TK * V + i];
     if (k0 + i / V < nk) dv_g[(size_t)k0 * V + i] = a;
   }
 }
@@ -351,17 +337,11 @@ size_t product_smem_bytes() {
   return sizeof(float) * (size_t)PSTAGES * STAGE_FLOATS;
 }
 
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
 // (hi, lo) of x as two TF32 values in fp32 registers: hi = tf32(x),
-// lo = tf32(x - hi) (x - hi is exact in fp32).
-__device__ __forceinline__ float2 split_tf32(float x) {
-  const float hi = __uint_as_float(to_tf32(x));
-  return make_float2(hi, __uint_as_float(to_tf32(x - hi)));
+// lo = tf32(x - hi) (x - hi is exact in fp32), as corr_score.cuh splits.
+__device__ __forceinline__ float2 tf32_pair(float x) {
+  const float hi = tf32_rna(x);
+  return make_float2(hi, tf32_rna(x - hi));
 }
 
 // d += a . b on one 16 x 8 x 8 tile (fragments as the PTX ISA lays out
@@ -478,7 +458,7 @@ __device__ __forceinline__ void product_tile(
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float2 h = split_tf32(x[e]);
+          const float2 h = tf32_pair(x[e]);
           ahi[mi][e] = h.x;
           alo[mi][e] = h.y;
         }
@@ -486,8 +466,8 @@ __device__ __forceinline__ void product_tile(
 #pragma unroll
       for (int ni = 0; ni < 8; ++ni) {
         const int n = wn + 8 * ni + g;
-        const float2 y0 = split_tf32(bs[(kk + t) * B_LD + n]);
-        const float2 y1 = split_tf32(bs[(kk + t + 4) * B_LD + n]);
+        const float2 y0 = tf32_pair(bs[(kk + t) * B_LD + n]);
+        const float2 y1 = tf32_pair(bs[(kk + t + 4) * B_LD + n]);
         const float bhi[2] = {y0.x, y1.x}, blo[2] = {y0.y, y1.y};
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
@@ -594,23 +574,25 @@ cudaError_t launch_product(bool trans, const float* df, const float* bmat,
 
 }  // namespace
 
-// K3: theta [B, nq, c], phi [B, nk, c] (16-byte aligned, c % 32 == 0),
-// values [B, nk, 3], m, l, dd, dsim [B, nq], dout [B, nq, 3], all fp32 and
-// contiguous. Scratch: rows [B, nq', 8] and df [B, nq', nk'] (nq', nk' =
-// nq, nk rounded up to 128; df is written whole and left for
-// devc_corr_bwd_dq), and with splits > 1 part_v (splits * B * nk * 3
-// floats), with psplits > 1 part_p (psplits * B * nk * c). Writes dphi
-// [B, nk, c] and dvalues [B, nk, 3]. Returns cudaGetLastError() after the
-// last launch (or the first error).
+// K3's score pass: theta [B, nq, c], phi [B, nk, c] (16-byte aligned,
+// c % 32 == 0), values [B, nk, 3], m, l, dd, dsim [B, nq], dout [B, nq,
+// 3], all fp32 and contiguous. Scratch: split (B * (nq + nk) * 2c floats,
+// the TF32 halves of theta and phi, corr_score.cuh), rows [B, nq', 8] and
+// df [B, nq', nk'] (nq', nk' = nq, nk rounded up to 128; df is written
+// whole and left for devc_corr_bwd_dphi and devc_corr_bwd_dq), and with
+// splits > 1 part_v (splits * B * nk * 3 floats). Writes dvalues [B, nk,
+// 3]. Returns cudaGetLastError() after the last launch (or the first
+// error), cudaErrorInvalidValue when c is not a multiple of 32 or a tensor
+// map cannot be built.
 extern "C" int devc_corr_bwd_dkv(const void* theta, const void* phi,
                                  const void* values, const void* m,
                                  const void* l, const void* dd,
                                  const void* dsim, const void* dout,
-                                 void* rows, void* df, void* dphi,
-                                 void* dvalues, void* part_v, void* part_p,
-                                 int batch, int nq, int nk, int c, int splits,
-                                 int psplits, float inv_t, void* stream) {
-  if (c % CH != 0 || c <= 0) return (int)cudaErrorInvalidValue;
+                                 void* split, void* rows, void* df,
+                                 void* dvalues, void* part_v, int batch,
+                                 int nq, int nk, int c, int splits,
+                                 float inv_t, void* stream) {
+  if (c % CK != 0 || c <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nq_pad = round_up(nq, PAD);
   const int total = batch * nq_pad;
@@ -621,33 +603,53 @@ extern "C" int devc_corr_bwd_dkv(const void* theta, const void* phi,
       total);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  float* q_split = static_cast<float*>(split);
+  float* k_split = q_split + (size_t)batch * nq * 2 * c;
+  err = devc::split_tf32(static_cast<const float*>(theta), q_split,
+                         (size_t)batch * nq, c, st);
+  if (err != cudaSuccess) return (int)err;
+  err = devc::split_tf32(static_cast<const float*>(phi), k_split,
+                         (size_t)batch * nk, c, st);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap q_map, k_map;
+  if (!devc::make_map(&q_map, q_split, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                      2 * c, nq, batch, CK, TQ, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !devc::make_map(&k_map, k_split, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                      2 * c, nk, batch, CK, TK, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
 
   const int per = per_split(nq_pad, TQ, &splits);
-  const bool resident = c <= RESIDENT_MAX_C;
-  const size_t smem = scores_smem_bytes(resident, c);
-  auto kernel = resident ? corr_dkv_scores_kernel<true>
-                         : corr_dkv_scores_kernel<false>;
-  err = cudaFuncSetAttribute(kernel,
+  err = cudaFuncSetAttribute(corr_dkv_scores_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             (int)scores_smem_bytes());
   if (err != cudaSuccess) return (int)err;
   float* dv_dst = splits > 1 ? static_cast<float*>(part_v)
                              : static_cast<float*>(dvalues);
   const dim3 grid(round_up(nk, PAD) / TK, splits, batch);
-  kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const float*>(theta), static_cast<const float*>(phi),
-      static_cast<const float*>(values), static_cast<const float*>(rows),
-      static_cast<float*>(df), dv_dst, nq, nk, c, per, inv_t);
+  corr_dkv_scores_kernel<<<grid, THREADS, scores_smem_bytes(), st>>>(
+      q_map, k_map, static_cast<const float*>(values),
+      static_cast<const float*>(rows), static_cast<float*>(df), dv_dst, nq,
+      nk, c, per, inv_t);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (splits > 1)
     sum_splits(dv_dst, static_cast<float*>(dvalues), (size_t)batch * nk * V,
                splits, st);
+  return (int)cudaGetLastError();
+}
+
+// K3's product: dphi [B, nk, c] = df^T theta from devc_corr_bwd_dkv's df
+// [B, nq', nk'] and theta [B, nq, c]. With splits > 1, `part` is scratch
+// of splits * B * nk * c floats. Returns cudaGetLastError().
+extern "C" int devc_corr_bwd_dphi(const void* df, const void* theta,
+                                  void* dphi, void* part, int batch, int nq,
+                                  int nk, int c, int splits, void* stream) {
+  if (c % CK != 0 || c <= 0) return (int)cudaErrorInvalidValue;
   return (int)launch_product(true, static_cast<const float*>(df),
                              static_cast<const float*>(theta),
                              static_cast<float*>(dphi),
-                             static_cast<float*>(part_p), batch, nq, nk, c,
-                             psplits, st);
+                             static_cast<float*>(part), batch, nq, nk, c,
+                             splits, static_cast<cudaStream_t>(stream));
 }
 
 // K2b: dtheta [B, nq, c] = df phi from devc_corr_bwd_dkv's df [B, nq',
@@ -656,7 +658,7 @@ extern "C" int devc_corr_bwd_dkv(const void* theta, const void* phi,
 extern "C" int devc_corr_bwd_dq(const void* df, const void* phi,
                                 void* dtheta, void* part, int batch, int nq,
                                 int nk, int c, int splits, void* stream) {
-  if (c % CH != 0 || c <= 0) return (int)cudaErrorInvalidValue;
+  if (c % CK != 0 || c <= 0) return (int)cudaErrorInvalidValue;
   return (int)launch_product(false, static_cast<const float*>(df),
                              static_cast<const float*>(phi),
                              static_cast<float*>(dtheta),

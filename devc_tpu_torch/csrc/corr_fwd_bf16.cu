@@ -65,21 +65,28 @@
 // No atomics, a fixed merge order: two runs give the same bits.
 //
 // What it gives up: a product of two bf16 values is exact in fp32, so the
-// scores differ from the fp32 kernel's FMA chain on the upcast inputs only
-// in summation order (as devc_tpu's MXU product does), and are not bit-
-// equal to it. Nothing needs those bits: the backward's s == m routing
-// (corr_common.cuh) binds the fp32 kernels only, and the differentiable
-// path refuses bf16, so no kernel reads this kernel's m.
+// scores differ from the fp32 kernel's on the upcast inputs only in
+// summation order (as devc_tpu's MXU product does), and are not bit-equal
+// to them. Nothing needs those bits: the backward's s == m routing binds
+// the fp32 score rule (corr_score.cuh) only, and the differentiable path
+// refuses bf16, so no kernel reads this kernel's m.
+//
+// The fp32 kernel (corr_fwd.cu) shares this kernel's skeleton: its
+// mbarrier ring, TMA maps and accumulator softmax, with 32-channel fp32
+// atoms in 3xTF32 (corr_score.cuh); the Hopper helpers both use are in
+// hopper.cuh.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "corr_combine.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace devc;
 
 constexpr int TQ = 256;        // query rows per block: a warpgroup per 64
 constexpr int TK = 128;        // keys per tile: the wgmma's N
@@ -109,94 +116,6 @@ __host__ __device__ constexpr int atoms_of(int c) { return (c + CK - 1) / CK; }
 __host__ __device__ constexpr size_t smem_bytes(bool resident, int c) {
   return (size_t)ALIGN + (size_t)Q_ATOM * (resident ? atoms_of(c) : STAGES) +
          (size_t)STAGES * (K_ATOM + V_TILE) + 8 * (STAGES + 1);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------- mbarrier
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-// The issuing thread's arrival, expecting `bytes` from the copies that
-// complete on this barrier.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
-                                                      uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait for the barrier's phase of this parity to complete. A copy that
-// never lands would hang the card: after ~2^32 cycles (seconds) the
-// kernel traps instead, and the launch fails with an error.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > (1ll << 32)) __trap();
-}
-
-// ---------------------------------------------------------------- TMA
-
-// Copy the box at (x, y, z) = (channel, row, batch) of a 3-D tensor map
-// into shared memory at dst; its bytes complete on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int x, int y, int z) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y), "r"(z)
-      : "memory");
-}
-
-// ---------------------------------------------------------------- wgmma
-
-// wgmma's shared-memory matrix descriptor for a K-major operand in the
-// 128-byte swizzle: start address (16-byte units), leading byte offset 1
-// (unused by this layout), stride byte offset 1024 (8-row groups),
-// layout type 1 (128-byte swizzle). A step of 16 channels advances the
-// start address by 32 bytes inside the swizzled rows.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accesses to the accumulator across the
-// window in which the tensor cores own it.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A B for a 64 x 16 slice of queries (A) and a 128 x 16 slice of
@@ -435,52 +354,6 @@ corr_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 
 bool resident_form(int c) { return smem_bytes(true, c) <= kMaxSmem; }
 
-// cuTensorMapEncodeTiled, from the driver the runtime has loaded (the
-// library links no libcuda); null if the driver lacks it
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 3-D map over a row-major [batch, rows, inner] tensor whose box is
-// [1, box_rows, box_inner]: elements past the edges read as zero.
-bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
-              int elem_bytes, int inner, int rows, int batch, int box_inner,
-              int box_rows, CUtensorMapSwizzle swizzle) {
-  EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)inner * elem_bytes,
-                                 (cuuint64_t)rows * inner * elem_bytes};
-  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return enc(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
-             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace
 
 // theta [B, nq, c], phi [B, nk, c] bf16; values [B, nk, 4] fp32 (the
@@ -497,12 +370,12 @@ extern "C" int devc_corr_fwd_bf16(const void* theta, const void* phi,
                                   int nk, int c, int splits, float inv_t,
                                   void* stream) {
   CUtensorMap q_map, k_map, v_map;
-  if (!make_map(&q_map, theta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, c, nq,
-                batch, CK, TQ, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map(&k_map, phi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, c, nk,
-                batch, CK, TK, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map(&v_map, values, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, VW, nk,
-                batch, VW, TK, CU_TENSOR_MAP_SWIZZLE_NONE))
+  if (!devc::make_map(&q_map, theta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, c,
+                      nq, batch, CK, TQ, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !devc::make_map(&k_map, phi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, c, nk,
+                      batch, CK, TK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !devc::make_map(&v_map, values, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, VW,
+                      nk, batch, VW, TK, CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
   const int tiles = (nk + TK - 1) / TK;
   const int tiles_per_split = (tiles + splits - 1) / splits;

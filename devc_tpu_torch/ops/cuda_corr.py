@@ -1,17 +1,20 @@
 """Wrappers for the correspondence kernels and their autograd Function.
 
   * `corr_fwd`: K1, replaces devc_tpu/ops/pallas_corr.py::_corr_fwd_kernel:
-    fp32 embeddings run `csrc/corr_fwd.cu` (fp32 FMA scores in the order
-    the backward reproduces), bf16 embeddings (the --bf16 mode; out in
-    bf16) `csrc/corr_fwd_bf16.cu` (scores on the bf16 tensor cores with
-    fp32 accumulation, launched as `bf16_plan` lays it out). Plain version:
+    fp32 embeddings run `csrc/corr_fwd.cu` (scores on the tensor cores by
+    the fp32 score rule of `csrc/corr_score.cuh`, 3xTF32, which K3
+    reproduces bit for bit; launched as `fp32_plan` lays it out), bf16
+    embeddings (the --bf16 mode; out in bf16) `csrc/corr_fwd_bf16.cu`
+    (scores on the bf16 tensor cores with fp32 accumulation, launched as
+    `bf16_plan` lays it out). Plain version:
     `correspondence.correspondence_warp_einsum` (and, emitting l,
     `correspondence.correspondence_fwd_plain`).
   * `corr_bwd_dkv`, `corr_bwd_dq`: K3 and K2b (`csrc/corr_bwd.cu`), replace
     pallas_corr.py::_corr_dkv_kernel and ::_corr_dq_kernel. K3 is the
     backward's one score pass (dphi, dvalues, and df into a scratch
-    array); K2b forms dtheta from that df. `corr_bwd` forms D =
-    rowsum(dout * out) with a torch op, as JAX does, and runs both per
+    array, by K1's score rule; `corr_bwd_dkv_part` launches either half
+    alone, for timing); K2b forms dtheta from that df. `corr_bwd` forms
+    D = rowsum(dout * out) with a torch op, as JAX does, and runs both per
     batch chunk of bounded scratch (`plan_batch_chunks`). Plain version:
     `correspondence.correspondence_bwd_plain`.
   * `CorrFunction`: K1 forward (emitting l) and the two backward kernels
@@ -40,22 +43,28 @@ from devc_tpu_torch.ops.correspondence import (
 )
 from devc_tpu_torch.utils.build import check, load_kernels
 
-_TQ, _TK = 128, 128  # the fp32 K1's query rows per block, keys per tile
 _TB = 128  # the backward's tile, both sides; the df scratch is padded to it
 SCRATCH_BUDGET = 2 << 30  # bytes of df scratch the backward may hold at once
 _MAX_SPLITS = 8  # K1 reloads its query tile once per key range
 
-# K1's bf16 kernel (csrc/corr_fwd_bf16.cu), mirrored so that its launch
-# plan is a pure function the CPU tests reach: 256 query rows (four
-# warpgroups) and 128 keys a tile; shared tiles of [rows][64 channels]
-# bf16 ("atoms" of 128-byte rows, 1024-byte aligned), a 3-stage ring of
-# key atoms with a key tile's values (fp32, 16-byte rows) and an 8-byte
-# mbarrier per stage, and one mbarrier for the query tile. The kernel keeps
-# the query tile resident whenever that form fits a block's shared memory,
-# and runs one block an SM (more than half an SM's shared memory at every
-# width).
+# K1's two kernels, mirrored so that their launch plans are pure functions
+# the CPU tests reach. Both tile the queries by warpgroups of 64 rows and
+# the keys by 128, and keep shared tiles of 128-byte rows in the 128-byte
+# swizzle ("atoms", 1024-byte aligned), filled by TMA through a ring of
+# stages with an 8-byte mbarrier each; a key tile's values ride with its
+# last atom (fp32, 16-byte rows). One block an SM.
+#   * fp32 (csrc/corr_fwd.cu): 128 query rows (two warpgroups) a block;
+#     atoms of 32 fp32 channels; a 3-stage ring, each stage one atom of
+#     the queries and one of the keys, each in TF32 hi and lo. The queries
+#     stream with the keys at every width (resident, hi and lo would not
+#     fit), so the shared memory is the same at every C.
+#   * bf16 (csrc/corr_fwd_bf16.cu): 256 query rows (four warpgroups) a
+#     block; atoms of 64 bf16 channels; a 3-stage ring of key atoms and one
+#     mbarrier for the query tile, which stays resident whenever that form
+#     fits a block's shared memory.
+FP32_TQ, FP32_TK, FP32_CK, FP32_STAGES = 128, 128, 32, 3
 BF16_TQ, BF16_TK, BF16_CK, BF16_STAGES = 256, 128, 64, 3
-BF16_ALIGN, BF16_VW = 1024, 4
+BF16_ALIGN, BF16_VW = 1024, 4  # both kernels' atom alignment and value row
 MAX_BLOCK_SMEM = 232448  # dynamic shared memory of one block (H100)
 
 
@@ -74,11 +83,13 @@ def _plan_splits(q_blocks: int, tiles: int, slots: int) -> int:
     return best
 
 
-def _key_splits(b: int, nq: int, nk: int, device) -> int:
-    """Key ranges per query tile for the fp32 K1, which runs one block per
-    SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _plan_splits(b * -(-nq // _TQ), -(-nk // _TK), sms)
+def fp32_smem_bytes() -> int:
+    """The fp32 kernel's dynamic shared memory (its smem_bytes):
+    alignment slack, the ring of stages (query and key atoms, hi and lo),
+    the values ring and an mbarrier per stage."""
+    stage = 2 * (FP32_TQ + FP32_TK) * 4 * FP32_CK
+    v_tile = FP32_TK * BF16_VW * 4
+    return BF16_ALIGN + FP32_STAGES * (stage + v_tile) + 8 * FP32_STAGES
 
 
 def bf16_smem_bytes(resident: bool, c: int) -> int:
@@ -93,9 +104,9 @@ def bf16_smem_bytes(resident: bool, c: int) -> int:
 
 
 @dataclass(frozen=True)
-class Bf16Plan:
-    """How `corr_fwd` launches the bf16 kernel: grid (query tiles, splits,
-    batch) of 512-thread blocks, one an SM; split y takes key tiles [y
+class K1Plan:
+    """How `corr_fwd` launches one of K1's kernels: grid (query tiles,
+    splits, batch), one block an SM; split y takes key tiles [y
     tiles_per_split, (y + 1) tiles_per_split) of the `tiles` tiles."""
 
     resident: bool
@@ -111,18 +122,38 @@ class Bf16Plan:
                 for y in range(self.splits)]
 
 
-def bf16_plan(b: int, nq: int, nk: int, c: int, sms: int) -> Bf16Plan:
-    """The bf16 kernel's launch for [b, nq, c] queries against [b, nk, c]
-    keys on a card of `sms` SMs: its form and shared memory, and the split
-    of the keys that fills the card (the kernel rounds the requested count
-    the same way, so that no split is empty)."""
-    resident = bf16_smem_bytes(True, c) <= MAX_BLOCK_SMEM
-    q_tiles, tiles = -(-nq // BF16_TQ), -(-nk // BF16_TK)
+def _k1_plan(b, nq, nk, sms, tq, tk, resident, smem) -> K1Plan:
+    """The split of the keys that fills the card (the kernel rounds the
+    requested count the same way, so that no split is empty)."""
+    q_tiles, tiles = -(-nq // tq), -(-nk // tk)
     want = _plan_splits(b * q_tiles, tiles, sms)
     per_split = -(-tiles // want)
     splits = -(-tiles // per_split)
-    return Bf16Plan(resident, bf16_smem_bytes(resident, c), splits,
-                    per_split, tiles, (q_tiles, splits, b))
+    return K1Plan(resident, smem, splits, per_split, tiles,
+                  (q_tiles, splits, b))
+
+
+def fp32_plan(b: int, nq: int, nk: int, c: int, sms: int) -> K1Plan:
+    """The fp32 kernel's launch for [b, nq, c] queries against [b, nk, c]
+    keys on a card of `sms` SMs: its shared memory (the queries always
+    stream, `resident` is False) and the split of the keys."""
+    return _k1_plan(b, nq, nk, sms, FP32_TQ, FP32_TK, False,
+                    fp32_smem_bytes())
+
+
+def bf16_plan(b: int, nq: int, nk: int, c: int, sms: int) -> K1Plan:
+    """The bf16 kernel's launch for [b, nq, c] queries against [b, nk, c]
+    keys on a card of `sms` SMs: its form and shared memory, and the split
+    of the keys."""
+    resident = bf16_smem_bytes(True, c) <= MAX_BLOCK_SMEM
+    return _k1_plan(b, nq, nk, sms, BF16_TQ, BF16_TK, resident,
+                    bf16_smem_bytes(resident, c))
+
+
+def fp32_kernel_smem() -> int:
+    """The fp32 kernel's dynamic shared memory, asked of the built library;
+    fp32_plan's must agree."""
+    return load_kernels().devc_corr_fwd_smem()
 
 
 def bf16_kernel_form(c: int) -> tuple[bool, int]:
@@ -158,12 +189,14 @@ def corr_fwd(theta, phi, values, temperature: float, emit_l: bool = False):
     bf16, contiguous, on one CUDA device, C a multiple of 32. Returns out
     [B, Nq, 3] in the inputs' dtype, sim [B, Nq, 1] (the row max) and,
     with emit_l, the softmax denominator l [B, Nq, 1] relative to that max
-    (else None), both fp32: the Pallas kernel's output dtypes. bf16 inputs
-    run the bf16 kernel (scores on the tensor cores: within the fp32
-    kernel's tolerances of the plain version, not bit-equal to the fp32
-    kernel on the upcast inputs), with the values upcast to fp32 here
-    (exact) in rows padded to 16 bytes (a 6-byte bf16 row does not suit
-    the kernel's TMA copies).
+    (else None), both fp32: the Pallas kernel's output dtypes. fp32 inputs
+    run the fp32 kernel (3xTF32 scores, whose bits K3 reproduces), with a
+    scratch of B (Nq + Nk) 2C floats for the TF32 halves of theta and phi;
+    bf16 inputs the bf16 kernel (scores on the tensor cores: within the
+    fp32 kernel's tolerances of the plain version, not bit-equal to the
+    fp32 kernel on the upcast inputs). Either kernel takes the values in
+    fp32 rows padded to 16 bytes for its TMA copies (bf16 upcast here,
+    exact; a 6-byte bf16 row does not suit them).
     """
     if theta.dim() != 3 or phi.dim() != 3 or values.dim() != 3:
         raise ValueError("corr_fwd: theta, phi, values must be [B, N, C]")
@@ -191,31 +224,31 @@ def corr_fwd(theta, phi, values, temperature: float, emit_l: bool = False):
     lib = load_kernels()
     dev = theta.device
     bf16 = dtype == torch.bfloat16
-    if bf16:
-        # fp32 rows of 16 bytes for the kernel's TMA boxes: one copy; the
-        # fourth column is never read
-        padded_values = torch.empty((b, nk, 4), dtype=torch.float32,
-                                    device=values.device)
-        padded_values[..., :3] = values
-        values = padded_values
+    # fp32 rows of 16 bytes for the kernel's TMA boxes: one copy; the
+    # fourth column is never read
+    padded_values = torch.empty((b, nk, 4), dtype=torch.float32,
+                                device=values.device)
+    padded_values[..., :3] = values
     out = torch.empty((b, nq, 3), dtype=dtype, device=dev)
     sim = torch.empty((b, nq, 1), dtype=torch.float32, device=dev)
     l = torch.empty((b, nq, 1), dtype=torch.float32, device=dev) if emit_l else None
-    splits = (bf16_plan(b, nq, nk, c, _sms(dev)).splits if bf16
-              else _key_splits(b, nq, nk, dev))
+    plan = (bf16_plan if bf16 else fp32_plan)(b, nq, nk, c, _sms(dev))
     # per key range: the partial (m, l, acc[3]) of every row, merged after
-    part = (torch.empty((splits, b, nq, 5), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
+    part = (torch.empty((plan.splits, b, nq, 5), dtype=torch.float32,
+                        device=dev) if plan.splits > 1 else None)
+    args = [theta.data_ptr(), phi.data_ptr(), padded_values.data_ptr(),
+            out.data_ptr(), sim.data_ptr(), l.data_ptr() if emit_l else None,
+            part.data_ptr() if part is not None else None]
+    if not bf16:
+        # the TF32 halves of theta and phi (csrc/corr_score.cuh)
+        split = torch.empty((b * (nq + nk) * 2 * c,), dtype=torch.float32,
+                            device=dev)
+        args.append(split.data_ptr())
     entry = lib.devc_corr_fwd_bf16 if bf16 else lib.devc_corr_fwd
     with torch.cuda.device(dev):
-        code = entry(
-            theta.data_ptr(), phi.data_ptr(), values.data_ptr(),
-            out.data_ptr(), sim.data_ptr(),
-            l.data_ptr() if emit_l else None,
-            part.data_ptr() if part is not None else None,
-            b, nq, nk, c, splits, float(1.0 / temperature),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        code = entry(*args, b, nq, nk, c, plan.splits,
+                     float(1.0 / temperature),
+                     torch.cuda.current_stream().cuda_stream)
     check(code, "corr_fwd")
     corr_fwd.launches += 1
     corr_fwd.bf16_launches += bf16
@@ -224,6 +257,26 @@ def corr_fwd(theta, phi, values, temperature: float, emit_l: bool = False):
 
 corr_fwd.launches = 0
 corr_fwd.bf16_launches = 0
+
+
+def split_tf32(x):
+    """The fp32 score rule's pre-pass alone (csrc/corr_score.cuh), launched
+    and not counted: x [..., C] fp32 on the card, C % 4 == 0, to
+    [..., 2C] = (hi | lo), hi = tf32(x) and lo = tf32(x - hi), each rounded
+    to nearest, ties away. K1 fp32 and K3 run it themselves on theta and
+    phi; this is for timing it apart and checking its bits."""
+    if not isinstance(x, torch.Tensor) or x.dim() < 1 or x.shape[-1] % 4 \
+            or x.shape[-1] == 0:
+        raise ValueError("split_tf32: x must be [..., C], C a multiple of 4")
+    _check_input("x", x, tuple(x.shape), "split_tf32")
+    out = torch.empty((*x.shape[:-1], 2 * x.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        code = load_kernels().devc_split_tf32(
+            x.data_ptr(), out.data_ptr(), x.numel() // x.shape[-1],
+            x.shape[-1], torch.cuda.current_stream().cuda_stream)
+    check(code, "split_tf32")
+    return out
 
 
 def _splits(blocks: int, units: int, slots: int) -> int:
@@ -289,34 +342,48 @@ def _sms(device) -> int:
 
 
 def _launch_dkv(lib, theta, phi, values, m, l, dd, d_sim, d_out, df, dphi,
-                dvalues, inv_t: float, batch: int):
+                dvalues, inv_t: float, batch: int, parts=("scores", "product")):
     """K3 on one batch chunk (inputs checked by the caller): the score
-    pass (df into `df`, dvalues) and dphi = df^T theta. The reductions'
-    splits, and so the bits, depend on `batch` (the whole backward's),
-    not on the chunk."""
+    pass (df into `df`, dvalues) and dphi = df^T theta; `parts` picks
+    either alone (the product reads the df already in `df`). The
+    reductions' splits, and so the bits, depend on `batch` (the whole
+    backward's), not on the chunk."""
     b, nq, c = theta.shape
     nk = phi.shape[1]
     dev = theta.device
     sms = _sms(dev)
     key_tiles, query_tiles = padded(nk) // _TB, padded(nq) // _TB
-    # the score pass runs one block per SM, the product two
-    splits = _splits(batch * key_tiles, query_tiles, sms)
-    psplits = _splits(batch * key_tiles * -(-c // _TB), query_tiles, 2 * sms)
-    rows = torch.empty((b, padded(nq), 8), dtype=torch.float32, device=dev)
-    part_v = (torch.empty((splits, b, nk, 3), dtype=torch.float32, device=dev)
-              if splits > 1 else None)
-    part_p = (torch.empty((psplits, b, nk, c), dtype=torch.float32,
-                          device=dev) if psplits > 1 else None)
+    stream = torch.cuda.current_stream().cuda_stream
     ptr = lambda t: t.data_ptr() if t is not None else None
-    with torch.cuda.device(dev):
-        code = lib.devc_corr_bwd_dkv(
-            theta.data_ptr(), phi.data_ptr(), values.data_ptr(),
-            m.data_ptr(), l.data_ptr(), dd.data_ptr(), d_sim.data_ptr(),
-            d_out.data_ptr(), rows.data_ptr(), df.data_ptr(),
-            dphi.data_ptr(), dvalues.data_ptr(), ptr(part_v), ptr(part_p),
-            b, nq, nk, c, splits, psplits, inv_t,
-            torch.cuda.current_stream().cuda_stream)
-    check(code, "corr_bwd_dkv")
+    if "scores" in parts:
+        # the score pass runs one block per SM
+        splits = _splits(batch * key_tiles, query_tiles, sms)
+        rows = torch.empty((b, padded(nq), 8), dtype=torch.float32,
+                           device=dev)
+        # the TF32 halves of theta and phi (csrc/corr_score.cuh)
+        split = torch.empty((b * (nq + nk) * 2 * c,), dtype=torch.float32,
+                            device=dev)
+        part_v = (torch.empty((splits, b, nk, 3), dtype=torch.float32,
+                              device=dev) if splits > 1 else None)
+        with torch.cuda.device(dev):
+            code = lib.devc_corr_bwd_dkv(
+                theta.data_ptr(), phi.data_ptr(), values.data_ptr(),
+                m.data_ptr(), l.data_ptr(), dd.data_ptr(), d_sim.data_ptr(),
+                d_out.data_ptr(), split.data_ptr(), rows.data_ptr(),
+                df.data_ptr(), dvalues.data_ptr(), ptr(part_v), b, nq, nk, c,
+                splits, inv_t, stream)
+        check(code, "corr_bwd_dkv")
+    if "product" in parts:
+        # the product runs two blocks per SM
+        psplits = _splits(batch * key_tiles * -(-c // _TB), query_tiles,
+                          2 * sms)
+        part_p = (torch.empty((psplits, b, nk, c), dtype=torch.float32,
+                              device=dev) if psplits > 1 else None)
+        with torch.cuda.device(dev):
+            code = lib.devc_corr_bwd_dphi(
+                df.data_ptr(), theta.data_ptr(), dphi.data_ptr(),
+                ptr(part_p), b, nq, nk, c, psplits, stream)
+        check(code, "corr_bwd_dkv")
 
 
 def _launch_dq(lib, df, phi, dtheta, batch: int):
@@ -376,6 +443,26 @@ def corr_bwd_dq(df, phi, nq: int):
     _launch_dq(load_kernels(), df, phi, dtheta, b)
     corr_bwd_dq.launches += 1
     return dtheta
+
+
+def corr_bwd_dkv_part(part: str, theta, phi, values, m, l, dd, d_sim,
+                      d_out, temperature: float, df, dphi, dvalues):
+    """One half of K3, launched alone and not counted: "scores" (the score
+    pass: df into `df`, dvalues into `dvalues`) or "product" (dphi = df^T
+    theta into `dphi`, from the df already in `df`). For timing the two
+    apart; `corr_bwd_dkv` runs both. Arguments as corr_bwd_dkv's, plus
+    the outputs."""
+    if part not in ("scores", "product"):
+        raise ValueError(f"corr_bwd_dkv_part: part must be 'scores' or "
+                         f"'product', got {part!r}")
+    b, nq, nk, c = _bwd_inputs("corr_bwd_dkv", theta, phi, values, m, l, dd,
+                               d_sim, d_out)
+    _check_df("corr_bwd_dkv", df, b, nq, nk, theta.device)
+    _check_input("dphi", dphi, (b, nk, c), "corr_bwd_dkv", theta.device)
+    _check_input("dvalues", dvalues, (b, nk, 3), "corr_bwd_dkv",
+                 theta.device)
+    _launch_dkv(load_kernels(), theta, phi, values, m, l, dd, d_sim, d_out,
+                df, dphi, dvalues, float(1.0 / temperature), b, parts=(part,))
 
 
 corr_bwd_dq.launches = 0

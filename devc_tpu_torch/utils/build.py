@@ -32,10 +32,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of each entry point: (argtypes, restype)
 _SIGNATURES = {
+    # theta, phi, values, out, sim, l_out, part, split, batch, nq, nk, c,
+    # splits, inv_t, stream
+    "devc_corr_fwd": ([_P] * 8 + [_I] * 5 + [ctypes.c_float, _P], _I),
+    # -> the fp32 kernel's dynamic shared memory (bytes)
+    "devc_corr_fwd_smem": ([], _I),
+    # src, dst, rows, c, stream: the score rule's TF32 split alone
+    "devc_split_tf32": ([_P, _P, ctypes.c_longlong, _I, _P], _I),
     # theta, phi, values, out, sim, l_out, part, batch, nq, nk, c, splits,
-    # inv_t, stream
-    "devc_corr_fwd": ([_P] * 7 + [_I] * 5 + [ctypes.c_float, _P], _I),
-    # the same, theta / phi / out in bf16 (corr_fwd_bf16.cu)
+    # inv_t, stream; theta / phi / out in bf16 (corr_fwd_bf16.cu)
     "devc_corr_fwd_bf16": ([_P] * 7 + [_I] * 5 + [ctypes.c_float, _P], _I),
     # c, *resident -> the bf16 kernel's dynamic shared memory (bytes)
     "devc_corr_fwd_bf16_form": ([_I, ctypes.POINTER(_I)], _I),
@@ -46,9 +51,11 @@ _SIGNATURES = {
                          + [ctypes.c_float] * 2 + [_P], _I),
     # df, phi, dtheta, part, batch, nq, nk, c, splits, stream
     "devc_corr_bwd_dq": ([_P] * 4 + [_I] * 5 + [_P], _I),
-    # theta, phi, values, m, l, dd, dsim, dout, rows, df, dphi, dvalues,
-    # part_v, part_p, batch, nq, nk, c, splits, psplits, inv_t, stream
-    "devc_corr_bwd_dkv": ([_P] * 14 + [_I] * 6 + [ctypes.c_float, _P], _I),
+    # df, theta, dphi, part, batch, nq, nk, c, splits, stream
+    "devc_corr_bwd_dphi": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    # theta, phi, values, m, l, dd, dsim, dout, split, rows, df, dvalues,
+    # part_v, batch, nq, nk, c, splits, inv_t, stream
+    "devc_corr_bwd_dkv": ([_P] * 13 + [_I] * 5 + [ctypes.c_float, _P], _I),
     "devc_error_string": ([_I], ctypes.c_char_p),
 }
 

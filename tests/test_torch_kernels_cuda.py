@@ -19,8 +19,15 @@ smoother pass is held to K2's bound, rtol 1e-4 with an atol of 1e-5 of
 max|x| for entries that cross zero; the whole smoother (six passes) to
 2e-3 on values of +-100, the bound of its CPU test. The
 backward kernels are held to devc_tpu's own bound for its Pallas VJP
-against einsum autodiff (tests/test_pallas_grad.py: atol 5e-3, rtol 1e-3);
-their inputs are random unit vectors, which leave no exact ties.
+against einsum autodiff (tests/test_pallas_grad.py: atol 5e-3, rtol 1e-3),
+against the gradients the plain versions give in float64 (`_bwd_float64`):
+at T = 0.01 the backward turns a score's round-off d into d / T^2 in df,
+so two fp32 versions whose scores are summed in different orders (the
+kernels' 3xTF32 tensor-core sums, cuBLAS's fp32 product) differ by more
+than that bound on a few rows, while the kernels lie within it of
+float64, and no farther from it than the fp32 plain version
+(`_assert_near_float64`); their inputs are random unit vectors, which
+leave no exact ties.
 K1's bf16 kernel is held to the same bounds against the plain version on
 the same bf16 inputs (its bf16 products are exact in fp32; its scores
 differ only in summation order), with out compared after its bf16
@@ -121,6 +128,42 @@ def test_corr_fwd_ties_average(cuda, b, nq):
     assert l[0, 0, 0].item() == 2.0
 
 
+@pytest.mark.parametrize("b,nq,nk,c", [(1, 5184, 5184, 256),
+                                       (2, 300, 700, 512), (3, 130, 4500, 96)])
+@pytest.mark.parametrize("temperature", [0.01, 1e-10])
+def test_corr_fwd_run_to_run_bit_equal(cuda, b, nq, nk, c, temperature):
+    """No atomics and a fixed merge order: two runs give the same bits."""
+    theta, phi, values = _corr_inputs(b, nq, nk, c, cuda, seed=2)
+    first = cuda_corr.corr_fwd(theta, phi, values, temperature, emit_l=True)
+    second = cuda_corr.corr_fwd(theta, phi, values, temperature, emit_l=True)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+# the training shape, and ragged N at C = 96 and 512
+@pytest.mark.parametrize("b,nq,nk,c", [(16, 5184, 5184, 256),
+                                       (2, 130, 4500, 96), (1, 300, 520, 512)])
+def test_corr_fwd_sim_is_the_row_max_k3_finds(cuda, b, nq, nk, c):
+    """K1's sim equals, bit for bit, the row max of the scores K3
+    recomputes. K3 at T = 1e-10 with d_out = 0 and d_sim = 1 writes df =
+    attn (0 - 0) / T + 1[s == m]: a score of K3's above m would give attn
+    = exp(+large) = inf and df = NaN there, and a row whose m K3 never
+    reaches would have no 1. So df is all 0 and 1, with a 1 in every
+    valid row."""
+    theta, phi, values = _corr_inputs(b, nq, nk, c, cuda, seed=3)
+    _, sim, l = cuda_corr.corr_fwd(theta, phi, values, 1e-10, emit_l=True)
+    zeros = torch.zeros_like(sim)
+    df = torch.empty((b, cuda_corr.padded(nq), cuda_corr.padded(nk)),
+                     device=cuda)
+    cuda_corr.corr_bwd_dkv(theta, phi, values, sim, l, zeros,
+                           torch.ones_like(sim), torch.zeros(b, nq, 3,
+                                                             device=cuda),
+                           1e-10, df)
+    valid = df[:, :nq, :nk]
+    assert bool(((valid == 0) | (valid == 1)).all())
+    assert bool((valid.sum(-1) >= 1).all())
+
+
 def test_corr_fwd_rejects_bad_inputs(cuda):
     theta, phi, values = _corr_inputs(1, 64, 64, 256, cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -219,6 +262,38 @@ def test_corr_fwd_bf16_plan_matches_kernel(cuda):
         plan = cuda_corr.bf16_plan(1, 5184, 5184, c, sms)
         assert cuda_corr.bf16_kernel_form(c) == (plan.resident,
                                                  plan.smem_bytes), c
+
+
+def test_split_tf32_rounds_to_nearest_ties_away(cuda):
+    """The score rule's pre-pass (K1 fp32 and K3 run it on theta and phi)
+    gives hi = tf32(x), lo = tf32(x - hi), rounded to nearest with ties
+    away from zero, bit for bit: the 13 low bits are cut after adding half
+    their range to the magnitude."""
+    rng = np.random.RandomState(4)
+    x = (rng.randn(3, 70, 96) * 10.0 ** rng.randint(
+        -30, 30, size=(3, 70, 1))).astype(np.float32)
+    bits = x.view(np.int32)
+    bits[0, :5] = (bits[0, :5] & ~0x1FFF) | 0x1000  # exact ties
+    x = torch.from_numpy(x).to(cuda)
+
+    def tf32(v):
+        return ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = tf32(x)
+    got = cuda_corr.split_tf32(x)
+    assert got.shape == (3, 70, 192)
+    assert torch.equal(got[..., :96], hi)
+    assert torch.equal(got[..., 96:], tf32(x - hi))
+
+
+def test_corr_fwd_fp32_plan_matches_kernel(cuda):
+    """The fp32 kernel's launch plan (ops/cuda_corr.py::fp32_plan, tested on
+    the CPU) and the built kernel agree on the shared memory, the same at
+    every width."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for c in (32, 96, 256, 512, 1024):
+        plan = cuda_corr.fp32_plan(1, 5184, 5184, c, sms)
+        assert cuda_corr.fp32_kernel_smem() == plan.smem_bytes, c
 
 
 def test_corr_fwd_bf16_refuses_mixed_dtypes_and_grad(cuda):
@@ -357,6 +432,28 @@ def test_frame_on_card_matches_golden(cuda):
                                atol=5e-2)
 
 
+def _bwd_float64(theta, phi, values, d_out, d_sim, temperature):
+    """The correspondence's gradients (dtheta, dphi, dvalues) at these
+    inputs, computed in float64 by the plain versions (forward, then
+    backward on its own residuals)."""
+    x = [t.double() for t in (theta, phi, values, d_out, d_sim)]
+    out, sim, l = correspondence_fwd_plain(x[0], x[1], x[2], temperature)
+    return correspondence_bwd_plain(x[0], x[1], x[2], sim, l, out, x[3], x[4],
+                                    temperature)
+
+
+def _assert_near_float64(got, want, plain32):
+    """Each gradient within devc_tpu's bound of the float64 one, and no
+    farther from it than the fp32 plain version's (`plain32`)."""
+    for name, g, w, p in zip(("dtheta", "dphi", "dvalues"), got, want,
+                             plain32):
+        assert g.shape == w.shape, name
+        torch.testing.assert_close(g.double(), w, atol=5e-3, rtol=1e-3,
+                                   msg=name)
+        err, err32 = ((x.double() - w).abs().max().item() for x in (g, p))
+        assert err <= err32, (name, err, err32)
+
+
 def _bwd_case(b, nq, nk, c, device, seed=0):
     """K1's residuals and random cotangents for a backward call."""
     theta, phi, values = _corr_inputs(b, nq, nk, c, device, seed)
@@ -384,10 +481,9 @@ def test_corr_bwd_matches_plain(cuda, b, nq, nk, c):
     torch.cuda.synchronize()
     assert (cuda_corr.corr_bwd_dq.launches, cuda_corr.corr_bwd_dkv.launches) \
         == (dq + 1, dkv + 1)
-    want = correspondence_bwd_plain(*args, 0.01)
-    for name, g, w in zip(("dtheta", "dphi", "dvalues"), got, want):
-        assert g.shape == w.shape, name
-        torch.testing.assert_close(g, w, atol=5e-3, rtol=1e-3, msg=name)
+    theta, phi, values, _, _, _, d_out, d_sim = args
+    want = _bwd_float64(theta, phi, values, d_out, d_sim, 0.01)
+    _assert_near_float64(got, want, correspondence_bwd_plain(*args, 0.01))
 
 
 @pytest.mark.parametrize("b,nq,nk,c", [(2, 200, 312, 256), (1, 5184, 5184, 256),
@@ -415,11 +511,11 @@ def test_corr_bwd_in_batch_chunks(cuda):
     assert (cuda_corr.corr_bwd_dq.launches, cuda_corr.corr_bwd_dkv.launches) \
         == (dq + 1, dkv + 1)
     whole = cuda_corr.corr_bwd(*args, 0.01)
-    want = correspondence_bwd_plain(*args, 0.01)
-    for name, x, y, w in zip(("dtheta", "dphi", "dvalues"), chunked, whole,
-                             want):
+    theta, phi, values, _, _, _, d_out, d_sim = args
+    want = _bwd_float64(theta, phi, values, d_out, d_sim, 0.01)
+    for name, x, y in zip(("dtheta", "dphi", "dvalues"), chunked, whole):
         assert torch.equal(x, y), name
-        torch.testing.assert_close(x, w, atol=5e-3, rtol=1e-3, msg=name)
+    _assert_near_float64(chunked, want, correspondence_bwd_plain(*args, 0.01))
 
 
 def test_corr_bwd_kernels_alone(cuda):
@@ -437,11 +533,10 @@ def test_corr_bwd_kernels_alone(cuda):
     dtheta = cuda_corr.corr_bwd_dq(df, phi, nq)
     torch.cuda.synchronize()
     assert not df[:, nq:].any() and not df[:, :, nk:].any()
-    want = correspondence_bwd_plain(theta, phi, values, sim, l, out, d_out,
-                                    d_sim, 0.01)
-    for name, g, w in zip(("dtheta", "dphi", "dvalues"),
-                          (dtheta, dphi, dvalues), want):
-        torch.testing.assert_close(g, w, atol=5e-3, rtol=1e-3, msg=name)
+    want = _bwd_float64(theta, phi, values, d_out, d_sim, 0.01)
+    _assert_near_float64((dtheta, dphi, dvalues), want,
+                         correspondence_bwd_plain(theta, phi, values, sim, l,
+                                                  out, d_out, d_sim, 0.01))
 
 
 @pytest.mark.parametrize("b,n", [(1, 5184), (2, 300)])
@@ -467,7 +562,8 @@ def test_corr_bwd_routes_dsim_to_the_row_max(cuda, b, n):
 def test_correspondence_warp_is_differentiable_on_card(cuda):
     """Under autograd the dispatch goes through CorrFunction: outputs carry
     a grad_fn, the backward launches K2b and K3 once each, and the
-    gradients match autograd of the plain version."""
+    gradients match autograd of the plain version in float64 (and lie no
+    farther from it than autograd of the plain version in fp32)."""
     theta, phi, values = _corr_inputs(2, 200, 312, 256, cuda)
     values = values / 2
     leaves = [t.clone().requires_grad_(True) for t in (theta, phi, values)]
@@ -480,12 +576,15 @@ def test_correspondence_warp_is_differentiable_on_card(cuda):
     got = torch.autograd.grad((out * d_out).sum() + (sim * d_sim).sum(), leaves)
     assert (cuda_corr.corr_bwd_dq.launches, cuda_corr.corr_bwd_dkv.launches) \
         == (dq + 1, dkv + 1)
-    ref = [t.clone().requires_grad_(True) for t in (theta, phi, values)]
-    w_out, w_sim = correspondence_warp_einsum(*ref, 0.01)
-    want = torch.autograd.grad((w_out * d_out).sum() + (w_sim * d_sim).sum(),
-                               ref)
-    for name, g, w in zip(("dtheta", "dphi", "dvalues"), got, want):
-        torch.testing.assert_close(g, w, atol=5e-3, rtol=1e-3, msg=name)
+    grads = []
+    for dtype in (torch.float64, torch.float32):
+        ref = [t.to(dtype, copy=True).requires_grad_(True)
+               for t in (theta, phi, values)]
+        w_out, w_sim = correspondence_warp_einsum(*ref, 0.01)
+        grads.append(torch.autograd.grad(
+            (w_out * d_out.to(dtype)).sum() + (w_sim * d_sim.to(dtype)).sum(),
+            ref))
+    _assert_near_float64(got, *grads)
 
 
 def test_kernel_paths_refuse_inputs_that_need_grad(cuda):
