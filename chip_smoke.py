@@ -92,10 +92,7 @@ line {"ok": true, "device": {...}}:
                memory, every loss, weights moved, kernel launch counts
                (per step K1 4 times: twice per frame, the forward and its
                recomputation under remat; K2b and K3 once per frame), and a
-               checkpoint save / restore that must be bit-equal; then one
-               more step under torch.profiler: device time by kernel
-               group, the busy share and any FFT / complex-GEMM cuDNN
-               kernels (`train_profile`).
+               checkpoint save / restore that must be bit-equal.
  13. cli_train the trainer's entry point in process, on an ImageNet-style
                and a video-pairs dataset written to a temporary directory:
                python -m devc_tpu_torch.cli.train for 30 steps at batch
@@ -1282,7 +1279,7 @@ def _serve_scheduler(models, tmp, seed, card):
     results, launches, wall = run(sched, range(len(jobs)), "")
     serve_launches = dict(launches)
     peak = torch.cuda.max_memory_allocated() / 2**20
-    steps = sched.steps
+    steps = sched.stats["steps"]
     frame0 = {}
     for j, (job, r) in enumerate(zip(jobs, results)):
         if j == SERVE_BAD_JOB:
@@ -1331,8 +1328,8 @@ def _serve_scheduler(models, tmp, seed, card):
     assert [r["frames"] for r in results] == [len(jobs[j]["frames"])
                                               for j in good], results
     emit("serve", check="scheduler_jpeg", jobs=len(good), frames=good_frames,
-         steps=sched.steps, launches=jpg_launches, wall_s=jpg_wall,
-         wall_ms_per_step=jpg_wall * 1e3 / sched.steps,
+         steps=sched.stats["steps"], launches=jpg_launches, wall_s=jpg_wall,
+         wall_ms_per_step=jpg_wall * 1e3 / sched.stats["steps"],
          wall_frames_per_s=good_frames / jpg_wall, card=card)
 
     # device_resize: two jobs at 432x768 and one at RESIZE_SRC, raw frames
@@ -1380,12 +1377,13 @@ def _serve_scheduler(models, tmp, seed, card):
             frame0[j] = _diff(got, jobs[j]["alone0"])
     case = {"check": "scheduler_device_resize", "slots": SERVE_SLOTS,
             "sources": [[H, W], [H, W], list(RESIZE_SRC)],
-            "frames": [r["frames"] for r in results], "steps": sched.steps,
+            "frames": [r["frames"] for r in results],
+            "steps": sched.stats["steps"],
             "launches": launches, "frame0_vs_host_path": frame0,
             "wall_s": wall, "card": card}
     emit("serve", **case)
-    assert launches == {"corr_fwd": sched.steps,
-                        "smooth_pass": 6 * sched.steps,
+    assert launches == {"corr_fwd": sched.stats["steps"],
+                        "smooth_pass": 6 * sched.stats["steps"],
                         "tridiag_pcr": 0}, launches
     assert all(frame0[j]["max"] <= 1 for j in picked[:2]), frame0
     assert frame0[picked[2]]["psnr"] > 30.0, frame0
@@ -1821,55 +1819,6 @@ def phase_train_parity(seed: int):
             case["grad_rel_l2_vs_fp64"].items()}
 
 
-# kernel name fragments -> the training step's layers, first match wins
-KERNEL_GROUPS = (
-    ("K1 corr_fwd", ("corr_fwd_kernel", "corr_combine_kernel")),
-    ("K2b corr_bwd_dq", ("corr_dq_product_kernel",)),
-    ("K3 corr_bwd_dkv", ("corr_dkv_scores_kernel", "corr_dkv_rows_kernel",
-                         "corr_dkv_product_kernel")),
-    ("K2b/K3 split merge", ("sum_splits_kernel",)),
-    ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "xmma",
-                              "cudnn", "winograd", "implicit")),
-    ("matrix products (cuBLAS)", ("gemm", "gemv", "cutlass")),
-)
-
-
-def profile_train_step(step, state, batch, gen, step_ms: float):
-    """One training step under torch.profiler: device time by group of
-    kernels, and the busy share against the untraced step time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, _ = step(state, batch, gen)
-        torch.cuda.synchronize()
-    groups, launches, fft = {}, 0, {}
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        launches += 1
-        name = evt.name.lower()
-        if "fft" in name or "cf32" in name:
-            row = fft.setdefault(evt.name[:160], {"launches": 0, "ms": 0.0})
-            row["launches"] += 1
-            row["ms"] += evt.time_range.elapsed_us() / 1e3
-        group = next((g for g, frags in KERNEL_GROUPS
-                      if any(f.lower() in name for f in frags)),
-                     "elementwise, reductions, copies")
-        groups[group] = groups.get(group, 0.0) + evt.time_range.elapsed_us() / 1e3
-    kernel_ms = sum(groups.values())
-    emit("train_profile", kernel_ms_by_group=dict(
-        sorted(groups.items(), key=lambda kv: -kv[1])),
-        kernel_ms=kernel_ms, kernel_launches=launches,
-        untraced_step_ms=step_ms,
-        busy_share=kernel_ms / step_ms if kernel_ms else "not measured",
-        fft_or_cf32_kernels=fft)
-    return state
-
-
 def phase_train(seed: int, card: str):
     """The training main path at full width: train_step_u8 at batch 16,
     216x384, TrainConfig defaults. Returns the kernel launch counts."""
@@ -1914,9 +1863,6 @@ def phase_train(seed: int, card: str):
                 "corr_bwd_dq": cuda_corr.corr_bwd_dq.launches,
                 "corr_bwd_dkv": cuda_corr.corr_bwd_dkv.launches}
     peak = torch.cuda.max_memory_allocated() / 2**20
-    # a sixth step, traced; its launches are not the main path's count
-    state = profile_train_step(step, state, batch, gen,
-                               statistics.median(step_ms[1:]))
 
     moved = {"params_g": 0.0, "params_d": 0.0}
     for n, t in (list(state.params_g.named_parameters(prefix="g"))

@@ -30,9 +30,19 @@ Protocol (stdin -> stdout, one JSON object per line), devc_tpu's
 Responses:
   {"ready": true, "warmup_seconds": S}             # first line, once
   {"ok": true, "frames": N, "seconds": S, "fps": F, "outputs": [...]}
-  {"ok": true, "seconds": S, "results": [...]}     # batch
+  {"ok": true, "seconds": S, "results": [...],     # batch
+   "stats": {"steps": N, "refills": N,
+             "decode_wait_s": S, "refill_s": S,
+             "write_wait_s": S, "encode_s": S}}
   {"ok": true, "pong": true} / {"ok": true, "bye": true}
   {"ok": false, "error": "..."}
+
+A batch's "stats" say what held it back: the batched device steps it
+took, the slots refilled after their first job, and the seconds the
+scheduler's main loop waited on the decode threads, on refills (a new
+clip's probe, reader, exemplar and first frame) and on the writer's
+queue, and the seconds the writer thread spent encoding
+(pipeline/scheduler.py). They are always kept; no profiler is needed.
 
 A long-lived process is the intended deployment shape: the weights and the
 built kernels stay loaded, and the start-up warm-up (the kernels' build
@@ -68,7 +78,7 @@ def _batch(models, job, image_size, temperature):
         if r and "outputs" in r:
             r["outputs"] = _short(r["outputs"])
     return {"ok": True, "seconds": round(time.time() - t0, 2),
-            "results": results}
+            "results": results, "stats": sched.stats}
 
 
 def _job(models, job, image_size, temperature):

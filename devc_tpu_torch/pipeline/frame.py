@@ -29,6 +29,7 @@ from devc_tpu_torch.models.warpnet import (
     warpnet_apply,
 )
 from devc_tpu_torch.utils.convert import checked_device
+from devc_tpu_torch.utils.profiling import span
 
 # VGG taps used throughout the live path
 FEATURE_TAPS = ("r12", "r22", "r32", "r42", "r52")
@@ -92,15 +93,19 @@ def prepare_reference(models: PipelineModels, ref_lab):
 def _frame_features(models, a_l):
     """VGG taps r22..r52 of the gray frame a_l [B, H, W, 1], normalised;
     no gradient (a frozen extractor, as devc_tpu's stop_gradient)."""
-    with torch.no_grad():
-        feats_a = vgg19_extract(models.vgg, cs.gray_to_rgb(a_l), FEATURE_TAPS)
-    return [cs.feature_normalize(f) for f in feats_a[1:]]
+    with span("frame::vgg"):
+        with torch.no_grad():
+            feats_a = vgg19_extract(models.vgg, cs.gray_to_rgb(a_l),
+                                    FEATURE_TAPS)
+        return [cs.feature_normalize(f) for f in feats_a[1:]]
 
 
 def query_embedding(models, a_l):
     """The frame side of the correspondence: theta [B, N, 256] of the gray
     frame a_l [B, H, W, 1]."""
-    return embed_queries(models.warpnet, _frame_features(models, a_l))
+    features = _frame_features(models, a_l)
+    with span("frame::embed"):
+        return embed_queries(models.warpnet, features)
 
 
 def warp_color(models, a_l, ref_state, temperature: float = 0.01,
@@ -118,10 +123,11 @@ def warp_color(models, a_l, ref_state, temperature: float = 0.01,
     hw = (a_l.shape[1], a_l.shape[2])
     if "phi" in ref_state:
         theta = query_embedding(models, a_l)
-        return warp_with_keys(theta, ref_state["phi"], ref_state["values"],
-                              hw, temperature, differentiable,
-                              out_dtype=a_l.dtype,
-                              corr_sharding=corr_sharding)
+        with span("frame::corr"):
+            return warp_with_keys(theta, ref_state["phi"],
+                                  ref_state["values"], hw, temperature,
+                                  differentiable, out_dtype=a_l.dtype,
+                                  corr_sharding=corr_sharding)
     if corr_sharding is not None:
         raise ValueError("corr_sharding needs the prepared exemplar state "
                          "{'phi', 'values'}")
@@ -159,7 +165,7 @@ def frame_colorization(models, a_lab, a_last_lab, ref_state,
             warped_lab, similarity = warp_color(models, a_l, ref_state,
                                                 temperature,
                                                 corr_sharding=corr_sharding)
-    color_input = torch.cat(
-        [a_l, warped_lab[..., 1:3], similarity, a_last_lab], dim=-1)
-    pred_ab = colorvidnet_apply(models.colorvid, color_input)
+    with span("frame::colorvidnet"):
+        pred_ab = colorvidnet_apply(models.colorvid, torch.cat(
+            [a_l, warped_lab[..., 1:3], similarity, a_last_lab], dim=-1))
     return pred_ab, warped_lab, similarity

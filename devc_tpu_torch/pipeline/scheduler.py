@@ -23,10 +23,20 @@ after the step, so that a job that later takes the slot starts from zero
 as it would alone.
 
 Used by cli/serve.py's {"cmd": "batch", "jobs": [...]} request.
+
+What held a run back: after run(), `ClipBatchScheduler.stats` holds the
+batched steps and refills it took, and host-clock sums of the main loop's
+waits on the decode threads, on refills and on the writer's queue, and of
+the writer thread's encoding (always kept: a few clock reads a step).
+Under a profiler the main loop's stretches are also spans
+(utils/profiling.py): "sched::step" round each step, with
+"sched::decode_wait", "sched::refill", "sched::upload",
+"sched::device_step", "sched::download" and "sched::write_wait" inside.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -50,6 +60,29 @@ from devc_tpu_torch.pipeline.video import (
     _to_device_u8,
     _video_frames_rgb,
 )
+from devc_tpu_torch.utils.profiling import span
+
+
+def _new_stats() -> dict:
+    """steps: batched device steps; refills: jobs started in a slot after
+    the first fill; decode_wait_s, refill_s, write_wait_s: seconds the
+    main loop spent waiting on a running job's decode thread, refilling a
+    slot (from a clip's end to the new job's first frame: probe, reader
+    start, the exemplar's features, the first decode) and waiting on the
+    writer's queue; encode_s: seconds the writer thread spent in _save."""
+    return dict(steps=0, refills=0, decode_wait_s=0.0, refill_s=0.0,
+                write_wait_s=0.0, encode_s=0.0)
+
+
+@contextlib.contextmanager
+def _timed(stats: dict, key: str, name: str):
+    """span(name), its host-clock seconds added to stats[key]."""
+    t0 = time.perf_counter()
+    try:
+        with span(name):
+            yield
+    finally:
+        stats[key] += time.perf_counter() - t0
 
 
 class _Slot:
@@ -108,7 +141,8 @@ class ClipBatchScheduler:
     batched step on the models' device.
 
     run() returns one dict per job, in submission order: frames, seconds,
-    fps and outputs, or error (with the outputs written before it).
+    fps and outputs, or error (with the outputs written before it); then
+    `stats` holds its counters (`_new_stats`).
     """
 
     def __init__(self, models, image_size=(432, 768), slots: int = 4,
@@ -127,7 +161,7 @@ class ClipBatchScheduler:
         self.device_resize = device_resize
         self.jobs = []
         self._max_hw = None
-        self.steps = 0  # batched device steps run()'s last call took
+        self.stats = _new_stats()  # run()'s last call
 
     def submit(self, clip_path: str, ref_path: str, output_path: str) -> int:
         self.jobs.append(dict(clip_path=clip_path, ref_path=ref_path,
@@ -208,7 +242,7 @@ class ClipBatchScheduler:
         b = self.slots
         device = self.models.device
 
-        self.steps = 0
+        self.stats = stats = _new_stats()
         results = [None] * len(self.jobs)
         pending = list(range(len(self.jobs)))
         slots = [_Slot() for _ in range(b)]
@@ -274,11 +308,13 @@ class ClipBatchScheduler:
                     slots[i].job = None
                     continue
                 last[i] = 0.0
+                stats["refills"] += 1
                 return
             slots[i].job = None
 
         for i in range(b):
             refill(i)
+        stats["refills"] = 0  # the first fill is not a refill
         if ref_stack is None:
             return results  # no runnable job
 
@@ -295,10 +331,12 @@ class ClipBatchScheduler:
                 job_idx, path, arr = item
                 if job_idx in writer_errs:
                     continue  # the job failed; drop its queued frames
+                t0 = time.perf_counter()
                 try:
                     _save(path, arr)
                 except Exception as e:
                     writer_errs[job_idx] = str(e)
+                stats["encode_s"] += time.perf_counter() - t0
 
         wt = threading.Thread(target=writer, daemon=True)
         wt.start()
@@ -319,79 +357,95 @@ class ClipBatchScheduler:
                     outputs=sorted(s.written))
             refill(i)
 
-        try:
-            while any(s.job is not None for s in slots):
-                frames, active = [], []
-                for i, s in enumerate(slots):
+        def step():
+            """One batched step over the slots' next frames."""
+            nonlocal last
+            frames, active = [], []
+            for i, s in enumerate(slots):
+                if s.job is None:
+                    frames.append(zero_frame)
+                    continue
+                # stop stepping a job whose write failed
+                if s.job["idx"] in writer_errs:
+                    with _timed(stats, "refill_s", "sched::refill"):
+                        finish_job(i, s)
+                    s = slots[i]
                     if s.job is None:
                         frames.append(zero_frame)
                         continue
-                    # stop stepping a job whose write failed
-                    if s.job["idx"] in writer_errs:
-                        finish_job(i, s)
-                        s = slots[i]
-                        if s.job is None:
-                            frames.append(zero_frame)
-                            continue
+                with _timed(stats, "decode_wait_s", "sched::decode_wait"):
                     frame = s.frames_q.get()
-                    # a decode failure mid-clip
-                    if isinstance(frame, Exception):
-                        results[s.job["idx"]] = dict(error=str(frame),
-                                                     outputs=sorted(s.written))
+                # a decode failure mid-clip
+                if isinstance(frame, Exception):
+                    results[s.job["idx"]] = dict(error=str(frame),
+                                                 outputs=sorted(s.written))
+                    with _timed(stats, "refill_s", "sched::refill"):
                         refill(i)
                         s = slots[i]
-                        if s.job is None:
-                            frames.append(zero_frame)
-                            continue
-                        frame = s.frames_q.get()
-                        if isinstance(frame, Exception):
-                            # two bad jobs in a row: fail it, idle this step
-                            results[s.job["idx"]] = dict(error=str(frame),
-                                                         outputs=[])
-                            refill(i)
-                            frames.append(zero_frame)
-                            continue
-                    if frame is None:  # the clip ended
+                        if s.job is not None:
+                            frame = s.frames_q.get()
+                    if s.job is None:
+                        frames.append(zero_frame)
+                        continue
+                    if isinstance(frame, Exception):
+                        # two bad jobs in a row: fail it, idle this step
+                        results[s.job["idx"]] = dict(error=str(frame),
+                                                     outputs=[])
+                        refill(i)
+                        frames.append(zero_frame)
+                        continue
+                if frame is None:  # the clip ended
+                    with _timed(stats, "refill_s", "sched::refill"):
                         finish_job(i, s)
                         s = slots[i]
-                        if s.job is None:
-                            frames.append(zero_frame)
-                            continue
-                        frame = s.frames_q.get()
-                        if frame is None or isinstance(frame, Exception):
-                            # a first-frame decode error fails the new job (an
-                            # empty clip cannot get here: _probe_source)
-                            if isinstance(frame, Exception):
-                                results[s.job["idx"]] = dict(error=str(frame),
-                                                             outputs=[])
-                                slots[i].job = None
-                            frames.append(zero_frame)
-                            continue
-                    frames.append(frame)
-                    active.append(i)
-                if not active:
-                    continue
+                        if s.job is not None:
+                            frame = s.frames_q.get()
+                    if s.job is None:
+                        frames.append(zero_frame)
+                        continue
+                    if frame is None or isinstance(frame, Exception):
+                        # a first-frame decode error fails the new job (an
+                        # empty clip cannot get here: _probe_source)
+                        if isinstance(frame, Exception):
+                            results[s.job["idx"]] = dict(error=str(frame),
+                                                         outputs=[])
+                            slots[i].job = None
+                        frames.append(zero_frame)
+                        continue
+                frames.append(frame)
+                active.append(i)
+            if not active:
+                return
 
+            with span("sched::upload"):
+                frames_u8 = torch.from_numpy(np.stack(frames)).to(device)
+            with span("sched::device_step"):
                 out, last = batched_frame_step(
-                    self.models, torch.from_numpy(np.stack(frames)).to(device),
-                    last, ref_stack, self.temperature, self.wls,
-                    resize_plans=plans)
-                self.steps += 1
-                # the step ran over all B rows; a row that idled on a zero
-                # frame (e.g. refilled after two decode failures in a row) must
-                # not keep that output as its carry, or the job that takes the
-                # slot next would not start from zero as it would alone
-                idle = [i for i in range(b) if i not in active]
-                if idle:
-                    last[idle] = 0.0
+                    self.models, frames_u8, last, ref_stack,
+                    self.temperature, self.wls, resize_plans=plans)
+            stats["steps"] += 1
+            # the step ran over all B rows; a row that idled on a zero
+            # frame (e.g. refilled after two decode failures in a row) must
+            # not keep that output as its carry, or the job that takes the
+            # slot next would not start from zero as it would alone
+            idle = [i for i in range(b) if i not in active]
+            if idle:
+                last[idle] = 0.0
+            with span("sched::download"):
                 out_np = out.cpu().numpy()
-                for i in active:
-                    s = slots[i]
-                    path = os.path.join(s.job["output_path"],
-                                        f"{s.index:05d}.{self.out_ext}")
+            for i in active:
+                s = slots[i]
+                path = os.path.join(s.job["output_path"],
+                                    f"{s.index:05d}.{self.out_ext}")
+                with _timed(stats, "write_wait_s", "sched::write_wait"):
                     write_q.put((s.job["idx"], path, out_np[i]))
-                    s.written.append(path)
-                    s.index += 1
+                s.written.append(path)
+                s.index += 1
+
+        try:
+            while any(s.job is not None for s in slots):
+                with span("sched::step"):
+                    step()
         finally:
             for s in slots:
                 s.release()

@@ -62,6 +62,7 @@ from devc_tpu_torch.pipeline.frame import (
 )
 from devc_tpu_torch.pipeline.graph import CapturedStep
 from devc_tpu_torch.utils.convert import use_full_fp32
+from devc_tpu_torch.utils.profiling import span
 
 
 _PREFETCH = 4  # frames decoded ahead of, and encoded behind, the device
@@ -178,17 +179,19 @@ def _postprocess(lab_large, pred_ab, wls: bool):
     all B predictions (several exemplars: one guide for the whole batch)."""
     b = pred_ab.shape[0]
     h, w = lab_large.shape[1], lab_large.shape[2]
-    ab_up = _resize_nhwc(pred_ab, (h, w)) * 1.25
-    l_large = lab_large[..., 0:1]
-    if wls:
-        guide = torch.clamp(
-            torch.floor(cs.uncenter_l(l_large[..., 0]) * 255.0 / 100.0),
-            0.0, 255.0)
-        ab_up = fast_global_smoother(
-            ab_up, guide if guide.shape[0] > 1 else guide[0])
-    l_large = l_large.expand(b, h, w, 1)
-    rgb_out = cs.lab_centered_to_rgb(torch.cat([l_large, ab_up], dim=-1))
-    return torch.floor(torch.clamp(rgb_out, 0.0, 1.0) * 255.0).to(torch.uint8)
+    with span("frame::post"):
+        ab_up = _resize_nhwc(pred_ab, (h, w)) * 1.25
+        l_large = lab_large[..., 0:1]
+        if wls:
+            guide = torch.clamp(
+                torch.floor(cs.uncenter_l(l_large[..., 0]) * 255.0 / 100.0),
+                0.0, 255.0)
+            ab_up = fast_global_smoother(
+                ab_up, guide if guide.shape[0] > 1 else guide[0])
+        l_large = l_large.expand(b, h, w, 1)
+        rgb_out = cs.lab_centered_to_rgb(torch.cat([l_large, ab_up], dim=-1))
+        return torch.floor(torch.clamp(rgb_out, 0.0, 1.0) * 255.0).to(
+            torch.uint8)
 
 
 @torch.inference_mode()
@@ -281,14 +284,18 @@ def frame_step_multi(models: PipelineModels, rgb_u8, last_lab, ref_state,
     r = last_lab.shape[0]
     a_l = lab_small[..., 0:1]
     theta = query_embedding(models, a_l)
-    # K1 takes contiguous inputs: theta repeated, 4 N C bytes an exemplar
-    theta_r = theta.expand(r, *theta.shape[1:]).contiguous()
-    warped, sim = warp_with_keys(theta_r, ref_state["phi"],
-                                 ref_state["values"],
-                                 (a_l.shape[1], a_l.shape[2]), temperature)
+    with span("frame::corr"):
+        # K1 takes contiguous inputs: theta repeated, 4 N C bytes an
+        # exemplar
+        theta_r = theta.expand(r, *theta.shape[1:]).contiguous()
+        warped, sim = warp_with_keys(theta_r, ref_state["phi"],
+                                     ref_state["values"],
+                                     (a_l.shape[1], a_l.shape[2]),
+                                     temperature)
     a_l_r = a_l.expand(r, *a_l.shape[1:])
-    pred_ab = colorvidnet_apply(models.colorvid, torch.cat(
-        [a_l_r, warped[..., 1:3], sim, last_lab], dim=-1)).float()
+    with span("frame::colorvidnet"):
+        pred_ab = colorvidnet_apply(models.colorvid, torch.cat(
+            [a_l_r, warped[..., 1:3], sim, last_lab], dim=-1)).float()
     new_last = torch.cat([a_l_r, pred_ab], dim=-1)
     return _postprocess(lab_large, pred_ab, wls), new_last
 
@@ -324,7 +331,9 @@ def _run_clip(step, frames, frame_shape, carry, on_frame, mode: str,
     mode "scan": `chunk` frames per upload and per download; on the card
     the step is captured once as a CUDA graph (`graph.CapturedStep`) and
     replayed per frame; on the CPU the same chunk loop runs the step
-    eagerly."""
+    eagerly. Spans (utils/profiling.py): "clip::frame" round each frame
+    (scan: each chunk), with "clip::upload", "clip::step" (the host's
+    dispatch) and "clip::download" (the synchronising copy) inside it."""
     if mode not in ("stream", "scan"):
         raise ValueError(f"unknown mode {mode!r} (expected 'stream' or "
                          "'scan')")
@@ -332,8 +341,14 @@ def _run_clip(step, frames, frame_shape, carry, on_frame, mode: str,
     n = 0
     if mode == "stream":
         for rgb in frames:
-            out, carry = step(_to_device_u8(rgb, frame_shape, device), carry)
-            on_frame(n, out.cpu().numpy())
+            with span("clip::frame"):
+                with span("clip::upload"):
+                    rgb = _to_device_u8(rgb, frame_shape, device)
+                with span("clip::step"):
+                    out, carry = step(rgb, carry)
+                with span("clip::download"):
+                    out = out.cpu().numpy()
+                on_frame(n, out)
             n += 1
         return n
     if chunk < 1:
@@ -341,18 +356,24 @@ def _run_clip(step, frames, frame_shape, carry, on_frame, mode: str,
     runner = (CapturedStep(step, frame_shape, carry)
               if device.type == "cuda" else None)
     for buf in _chunks(frames, chunk):
-        batch = _to_device_u8(np.stack(buf), (len(buf), *frame_shape), device)
-        if runner is not None:
-            outs = runner.run(batch)
-        else:
-            outs = []
-            for rgb in batch:
-                out, carry = step(rgb, carry)
-                outs.append(out)
-            outs = torch.stack(outs)
-        for out in outs.cpu().numpy():
-            on_frame(n, out)
-            n += 1
+        with span("clip::frame"):
+            with span("clip::upload"):
+                batch = _to_device_u8(np.stack(buf), (len(buf), *frame_shape),
+                                      device)
+            with span("clip::step"):
+                if runner is not None:
+                    outs = runner.run(batch)
+                else:
+                    outs = []
+                    for rgb in batch:
+                        out, carry = step(rgb, carry)
+                        outs.append(out)
+                    outs = torch.stack(outs)
+            with span("clip::download"):
+                outs = outs.cpu().numpy()
+            for out in outs:
+                on_frame(n, out)
+                n += 1
     return n
 
 

@@ -40,6 +40,13 @@ it. bucket=False keeps the same collectives with one all_reduce per
 gradient tensor (GSPMD's form, devc_tpu's --spmd_step off). Each rank
 draws its own luminance noise (a generator per rank, seeded by
 `noise_seed`, devc_tpu's fold_in of the axis index).
+
+Under a profiler the step's parts are spans (utils/profiling.py), in
+order: "train::forward" (the batch's preprocessing, the exemplar's VGG
+taps, the noise and the unroll), "train::critic" (its two forwards, its
+gradient and its update), "train::g_loss", "train::g_grad" (the
+generator's gradient, the checkpointed unroll's recomputation and the
+ranks' average included) and "train::update".
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from devc_tpu_torch.parallel.mesh import (
 from devc_tpu_torch.pipeline.frame import FEATURE_TAPS, frame_colorization
 from devc_tpu_torch.train import losses as L
 from devc_tpu_torch.train.state import TrainState, apply_updates, param_groups
+from devc_tpu_torch.utils.profiling import span
 
 
 class TrainConfig(NamedTuple):
@@ -247,7 +255,7 @@ def draw_noise(batch, generator=None):
 
 def train_step(state: TrainState, batch, tx_g, tx_d, vgg,
                cfg: TrainConfig = TrainConfig(), generator=None, group=None,
-               bucket: bool = True):
+               bucket: bool = True, preprocess=None):
     """One optimisation step. batch: dict of NHWC tensors on one device:
     last_lab, current_lab, ref_lab, placeholder_lab [B, H, W, 3];
     flow_forward [B, H, W, 2]; mask [B, H, W, 1]; self_ref_flag [B, 1].
@@ -258,49 +266,61 @@ def train_step(state: TrainState, batch, tx_g, tx_d, vgg,
     group: None, one process on the whole batch; else the process group
     over whose ranks the global batch is split, this rank holding its
     block (module docstring): the gradients and metrics come back
-    averaged over the ranks, the same on each. bucket: see `_pmean`."""
+    averaged over the ranks, the same on each. bucket: see `_pmean`.
+    preprocess: None, or a function of `batch` that gives the batch above
+    (`preprocess_batch_u8`), run as the step's first part."""
     models = types.SimpleNamespace(vgg=vgg, warpnet=state.params_g["warpnet"],
                                    colorvid=state.params_g["colorvid"])
-    features_b = _vgg_feats(vgg, batch["ref_lab"])
-    noise = draw_noise(batch, generator) if cfg.luminance_noise else None
-
     with torch.enable_grad():
-        outs = _two_frame_unroll(models, batch, features_b, noise, cfg)
-        cur_ab, last_ab = outs[0], outs[1]
+        with span("train::forward"):
+            if preprocess is not None:
+                batch = preprocess(batch)
+            features_b = _vgg_feats(vgg, batch["ref_lab"])
+            noise = (draw_noise(batch, generator) if cfg.luminance_noise
+                     else None)
+            outs = _two_frame_unroll(models, batch, features_b, noise, cfg)
+            cur_ab, last_ab = outs[0], outs[1]
 
         # critic update on the detached fake (reference :591-601)
-        if cfg.weight_gan > 0:
-            fake, real = _gan_pairs(batch, cur_ab.detach(), last_ab.detach(),
-                                    cfg.permute_data, group)
-            fl, _, sn1 = discriminator_apply(state.params_d, state.sn_state,
-                                             fake)
-            rl, _, sn_after = discriminator_apply(state.params_d, sn1, real)
-            d_loss = L.ralsgan_d_loss(rl, fl, group)
-            d_params = param_groups(state.params_d)
-            d_grads = list(torch.autograd.grad(d_loss, d_params[""],
-                                               materialize_grads=True))
-            if group is not None:
-                d_grads = _pmean(d_grads, group, bucket)
-            d_updates, opt_state_d = tx_d.update({"": d_grads},
-                                                 state.opt_state_d)
-            apply_updates(state.params_d, d_updates)
-        else:
-            d_loss = cur_ab.new_zeros(())
-            sn_after, opt_state_d = state.sn_state, state.opt_state_d
+        with span("train::critic"):
+            if cfg.weight_gan > 0:
+                fake, real = _gan_pairs(batch, cur_ab.detach(),
+                                        last_ab.detach(), cfg.permute_data,
+                                        group)
+                fl, _, sn1 = discriminator_apply(state.params_d,
+                                                 state.sn_state, fake)
+                rl, _, sn_after = discriminator_apply(state.params_d, sn1,
+                                                      real)
+                d_loss = L.ralsgan_d_loss(rl, fl, group)
+                d_params = param_groups(state.params_d)
+                d_grads = list(torch.autograd.grad(d_loss, d_params[""],
+                                                   materialize_grads=True))
+                if group is not None:
+                    d_grads = _pmean(d_grads, group, bucket)
+                d_updates, opt_state_d = tx_d.update({"": d_grads},
+                                                     state.opt_state_d)
+                apply_updates(state.params_d, d_updates)
+            else:
+                d_loss = cur_ab.new_zeros(())
+                sn_after, opt_state_d = state.sn_state, state.opt_state_d
 
         # generator update through the same unroll graph
-        g_total, metrics = _g_loss(batch, outs, features_b, vgg,
-                                   state.params_d, sn_after, cfg, group)
-        g_params = param_groups(state.params_g)
-        flat = [p for ps in g_params.values() for p in ps]
-        grads = list(torch.autograd.grad(g_total, flat,
-                                         materialize_grads=True))
-    if group is not None:
-        grads = _pmean(grads, group, bucket)
-    grads = iter(grads)
-    g_grads = {k: [next(grads) for _ in ps] for k, ps in g_params.items()}
-    g_updates, opt_state_g = tx_g.update(g_grads, state.opt_state_g)
-    apply_updates(state.params_g, g_updates)
+        with span("train::g_loss"):
+            g_total, metrics = _g_loss(batch, outs, features_b, vgg,
+                                       state.params_d, sn_after, cfg, group)
+        with span("train::g_grad"):
+            g_params = param_groups(state.params_g)
+            flat = [p for ps in g_params.values() for p in ps]
+            grads = list(torch.autograd.grad(g_total, flat,
+                                             materialize_grads=True))
+            if group is not None:
+                grads = _pmean(grads, group, bucket)
+    with span("train::update"):
+        grads = iter(grads)
+        g_grads = {k: [next(grads) for _ in ps]
+                   for k, ps in g_params.items()}
+        g_updates, opt_state_g = tx_g.update(g_grads, state.opt_state_g)
+        apply_updates(state.params_g, g_updates)
 
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["discriminator_loss"] = d_loss.detach()
@@ -345,8 +365,8 @@ def train_step_u8(state, batch_u8, tx_g, tx_d, vgg,
                   cfg: TrainConfig = TrainConfig(), generator=None,
                   group=None, bucket: bool = True):
     """train_step on the uint8 loader batch (preprocess_batch_u8 first)."""
-    return train_step(state, preprocess_batch_u8(batch_u8), tx_g, tx_d, vgg,
-                      cfg, generator, group, bucket)
+    return train_step(state, batch_u8, tx_g, tx_d, vgg, cfg, generator,
+                      group, bucket, preprocess=preprocess_batch_u8)
 
 
 def make_train_step(tx_g, tx_d, vgg, cfg: TrainConfig = TrainConfig(),

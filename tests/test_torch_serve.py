@@ -320,6 +320,14 @@ def test_serve_on_cpu(tmp_path):
             for d in dirs]})
         assert resp["ok"] is True, resp
         assert [r["frames"] for r in resp["results"]] == [2, 2]
+        # two slots, two jobs of two frames: two steps, no slot refilled
+        stats = resp["stats"]
+        assert (stats["steps"], stats["refills"]) == (2, 0), stats
+        assert set(stats) == {"steps", "refills", "decode_wait_s", "refill_s",
+                              "write_wait_s", "encode_s"}
+        assert stats["encode_s"] > 0
+        assert min(stats[k] for k in ("decode_wait_s", "refill_s",
+                                      "write_wait_s")) >= 0
         assert os.path.exists(os.path.join(dirs[1], "00001.jpg"))
         bad = ask({"clip_path": str(tmp_path / "nope"), "ref_path": ref,
                    "output_path": str(out_dir)})
