@@ -3,6 +3,7 @@
 
     python3 chip_conv_probe.py            # inference, then training
     python3 chip_conv_probe.py --train    # training only
+    python3 chip_conv_probe.py --split    # the split convolution per shape
 
 The batched serving step (`parallel/inference.py::batched_frame_step`,
 432x768, random weights, TF32 off) at batch 1 and 4, in five ways: the
@@ -24,6 +25,22 @@ previous-Lab weights x 1e-3, no luminance noise); the float64 step runs
 the correspondence's plain version, since the kernels are fp32 only.
 (3) ms per step and peak memory of both at 216x384 with the trainer's
 defaults, in turns whole, per-sample, per-sample, whole.
+
+The split convolution (`split_probe`, `--split`): every distinct
+convolution shape of the three networks at 432x768, found by hooks on
+`Conv2d` while an exemplar is prepared and one frame runs (the count a
+frame and in the exemplar's preparation), then per shape at batch 1:
+device ms (CUDA events, the card busy first, median of 10) of cuDNN's
+fp32 call, of the split kernel (`ops/conv_split.py`) and, for the record,
+of one cuDNN TF32 convolution of the split operands stacked on the
+channels; the bound at 165 TFLOP/s (fp32-accurate work as three TF32
+passes); whether the rule engages; the kernels each launches
+(torch.profiler); and the largest distance from a float64 convolution
+over max |x|*|w| of the fp32 call, the split kernel, the stacked cuDNN
+call (the small products first, and the large one first) and TF32
+alone. Then one frame step's device ms with the rule as it is and with
+it off. One JSON line a shape and a summary; everything also goes to
+chiprun_out/conv_probe_split.jsonl.
 
 Needs a GPU; exits 1 without one.
 """
@@ -167,6 +184,217 @@ def train_probe(card: str) -> None:
         "card": card}), flush=True)
 
 
+def _kernel_names(fn) -> list:
+    """Names of the CUDA kernels fn() launches (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def network_conv_shapes(models, hw, seed: int = 3):
+    """{(c_in, c_out, k, stride, padding, dilation, H, W): [a frame, in
+    the exemplar's preparation]} of every `Conv2d` call while an exemplar
+    is prepared and one frame runs at hw on the card."""
+    import torch
+
+    from chip_smoke import textured_frames
+    from devc_tpu_torch.ops.layers import Conv2d
+    from devc_tpu_torch.pipeline import video
+
+    counts, phase = {}, [1]
+
+    def hook(m, inputs, out):
+        x = inputs[0]
+        key = (m.in_channels, m.out_channels, m.kernel_size[0], m.stride[0],
+               m.padding[0], m.dilation[0], x.shape[2], x.shape[3])
+        counts.setdefault(key, [0, 0])[phase[0]] += 1
+
+    ref, frame = (torch.from_numpy(f).cuda()
+                  for f in textured_frames(seed, 2, hw))
+    hooks = [m.register_forward_hook(hook) for m in models.modules()
+             if isinstance(m, Conv2d)]
+    try:
+        _, state = video._device_ref_features(models, ref)
+        phase[0] = 0
+        last = torch.zeros((1, hw[0] // 2, hw[1] // 2, 3), device="cuda")
+        video.frame_step(models, frame, last, state)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return counts
+
+
+def split_probe(card: str) -> None:
+    """The split convolution per shape (see the module's docstring)."""
+    import os
+
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import cuda_ms, textured_frames
+    from devc_tpu_torch.ops import conv_split
+    from devc_tpu_torch.ops.layers import Conv2d
+    from devc_tpu_torch.pipeline import video
+    from devc_tpu_torch.pipeline.frame import PipelineModels
+    from devc_tpu_torch.utils.convert import state_dicts_from_numpy
+    from devc_tpu_torch.utils.init import host_pipeline_params
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    log = open(os.path.join("chiprun_out", "conv_probe_split.jsonl"), "w")
+
+    def emit(row):
+        row["card"] = card
+        line = json.dumps(row)
+        print(line, flush=True)
+        log.write(line + "\n")
+
+    hw = (432, 768)
+    models = PipelineModels.from_state_dicts(
+        state_dicts_from_numpy(host_pipeline_params(0)), "cuda")
+    shapes = network_conv_shapes(models, hw)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    totals = {"fp32_ms": 0.0, "cudnn_stacked_ms": 0.0, "chosen_ms": 0.0,
+              "bound_ms": 0.0}
+    with torch.inference_mode():
+        for key, (per_frame, prep) in sorted(shapes.items()):
+            cin, cout, k, stride, pad, dil, h, w = key
+            x = torch.randn(1, cin, h, w, generator=gen).relu_().cuda()
+            wt = (torch.randn(cout, cin, k, k, generator=gen)
+                  * (2.0 / (cin * k * k)) ** 0.5).cuda()
+            b = (torch.randn(cout, generator=gen) * 0.1).cuda()
+            args = ((stride, stride), (pad, pad), (dil, dil))
+            ws = conv_split.weight_split(wt)
+
+            def plain():
+                return F.conv2d(x, wt, b, *args)
+
+            def split():
+                return conv_split.split_conv2d(x, ws, b, stride, pad, dil, k)
+
+            # for the record: one cuDNN TF32 convolution of the operands
+            # stacked on the channels, the small products first or the
+            # large one first (channels-last stacks), and TF32 alone
+            wh, wl = conv_split.split_halves(wt)
+            xh, xl = conv_split.split_halves(x)
+            cl = torch.channels_last
+
+            def stacked(xs, wss):
+                xs = torch.cat(xs, dim=1).contiguous(memory_format=cl)
+                wss = torch.cat(wss, dim=1).contiguous(memory_format=cl)
+                return lambda: torch.cudnn_convolution(
+                    xs, wss, args[1], args[0], args[2], 1, False, False,
+                    True) + b.reshape(1, -1, 1, 1)
+
+            small_first = stacked((xh, xl, xh), (wl, wh, wh))
+            large_first = stacked((xh, xh, xl), (wh, wl, wh))
+
+            def tf32_alone():
+                return torch.cudnn_convolution(
+                    x, wt, args[1], args[0], args[2], 1, False, False,
+                    True) + b.reshape(1, -1, 1, 1)
+
+            y64 = F.conv2d(x.double(), wt.double(), b.double(), *args)
+            scale = F.conv2d(x.double().abs(), wt.double().abs(), None,
+                             *args).amax().item()
+
+            def err(fn):
+                return (fn().double() - y64).abs().max().item() / scale
+
+            out_hw = y64.shape[2:]
+            flop = 2 * k * k * cin * cout * out_hw[0] * out_hw[1]
+            engaged = conv_split.shape_rule(cin, cout, (k, k), (h, w))
+            row = {
+                "shape": {"c_in": cin, "c_out": cout, "k": k,
+                          "stride": stride, "padding": pad, "dilation": dil,
+                          "in_hw": [h, w], "out_hw": list(out_hw)},
+                "per_frame": per_frame, "in_exemplar_prep": prep,
+                "gflop": flop / 1e9,
+                "bound_ms_165": flop / 165e12 * 1e3,
+                "fp32_ms": cuda_ms(plain, queued=True),
+                "engaged": engaged,
+                "fp32_err": err(plain),
+                "cudnn_stacked_ms": cuda_ms(small_first, queued=True),
+                "cudnn_stacked_err": err(small_first),
+                "cudnn_stacked_large_first_err": err(large_first),
+                "tf32_alone_err": err(tf32_alone),
+                "fp32_kernels": sorted(set(_kernel_names(plain))),
+            }
+            if cin % conv_split.ATOM == 0:
+                row.update(split_ms=cuda_ms(split, queued=True),
+                           split_err=err(split),
+                           split_kernels=sorted(set(_kernel_names(split))))
+            emit(row)
+            totals["fp32_ms"] += per_frame * row["fp32_ms"]
+            totals["cudnn_stacked_ms"] += per_frame * row["cudnn_stacked_ms"]
+            totals["chosen_ms"] += per_frame * (
+                row["split_ms"] if row["engaged"] else row["fp32_ms"])
+            totals["bound_ms"] += per_frame * row["bound_ms_165"]
+
+    # one frame step's device time, the rule as it is and switched off
+    ref, frame = (torch.from_numpy(f).cuda()
+                  for f in textured_frames(4, 2, hw))
+    _, state = video._device_ref_features(models, ref)
+    last = torch.zeros((1, hw[0] // 2, hw[1] // 2, 3), device="cuda")
+
+    def step():
+        return video.frame_step(models, frame, last, state)
+
+    frame_ms = {}
+    real_rule = conv_split.shape_rule
+    for name in ("split", "plain", "plain", "split"):
+        conv_split.shape_rule = (real_rule if name == "split"
+                                 else lambda *a: False)
+        before = (Conv2d.split_calls, Conv2d.plain_calls,
+                  conv_split.split_conv2d.launches)
+        step()
+        calls = {"split_calls": Conv2d.split_calls - before[0],
+                 "plain_calls": Conv2d.plain_calls - before[1],
+                 "split_launches":
+                     conv_split.split_conv2d.launches - before[2]}
+        frame_ms.setdefault(name, []).append(
+            cuda_ms(step, reps=10, queued=True, spin_cycles=60_000_000))
+        frame_ms[name + "_calls"] = calls
+    conv_split.shape_rule = real_rule
+
+    # the host's cost of one call (the card kept busy, so that nothing
+    # waits on it): Conv2d at 256 -> 256 channels, 54x96, split and plain
+    import time
+
+    conv = Conv2d(256, 256, 3, padding=1).cuda().requires_grad_(False)
+    xs = torch.randn(1, 256, 54, 96, device="cuda")
+    host_us = {}
+    for name in ("split", "plain", "plain", "split"):
+        conv_split.shape_rule = (real_rule if name == "split"
+                                 else lambda *a: False)
+        with torch.inference_mode():
+            conv(xs)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(400_000_000)
+            t0 = time.perf_counter()
+            for _ in range(200):
+                conv(xs)
+            host_us.setdefault(name, []).append(
+                (time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+    conv_split.shape_rule = real_rule
+    emit({"config": "split_summary", "image_size": list(hw),
+          "distinct_shapes": len(shapes),
+          "convs_a_frame": sum(v[0] for v in shapes.values()),
+          "convs_in_exemplar_prep": sum(v[1] for v in shapes.values()),
+          "conv_ms_a_frame": totals, "frame_step_device_ms": frame_ms,
+          "host_us_a_call_256x54x96": host_us})
+    log.close()
+
+
 def main(argv=None) -> int:
     import numpy as np
     import torch
@@ -176,6 +404,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_conv_probe: needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if "--split" in argv:
+        from chip_smoke import card_line
+        from devc_tpu_torch.utils.convert import use_full_fp32
+
+        use_full_fp32()
+        split_probe(card_line())
+        return 0
     if "--train" in argv:
         from chip_smoke import card_line
         from devc_tpu_torch.utils.convert import use_full_fp32

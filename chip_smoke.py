@@ -42,15 +42,28 @@ line {"ok": true, "device": {...}}:
                is phi at the row's argmax).
   5. parity    one frame at a small size, teacher-forced, on the card
                (kernels) vs on the CPU (plain versions).
-  6. main      colorize_frames on 8 textured 432x768 frames with seeded
+  6. conv_split  the split convolution (ops/conv_split.py) at the main
+               path's shapes: one exemplar preparation and one frame step
+               at 432x768 recorded (57 split calls a frame, 28 a
+               preparation; the kernel launches the card's launch plans
+               give, which every later launch check reads; the same at
+               224x384 for the convergence phase), then every distinct
+               shape on its recorded inputs against the plain version
+               (`split_conv2d_plain`) and float64, within 2^-17 of
+               max |x|*|w| and no farther from float64 than cuDNN's fp32
+               call (2^-23 at the two shapes where that call is an FFT):
+               ms, plain ms, cuDNN fp32 ms and the bound (three TF32
+               passes a product, 165 TFLOP/s of fp32-accurate work).
+  7. main      colorize_frames on 8 textured 432x768 frames with seeded
                random weights at full model width, fp32, T = 1e-10, WLS on:
-               outputs checked, kernel launch counts checked (K1 once and
-               K2's smoother pass six times per frame), per-frame ms from
-               CUDA events.
-  7. layers    one frame's stages timed one by one with CUDA events.
-  8. cli       python -m devc_tpu_torch.cli.colorize on the frames written
+               outputs checked, kernel launch counts checked (K1 once,
+               K2's smoother pass six times and the split convolution's
+               frame launches per frame, and its launches of one
+               exemplar preparation), per-frame ms from CUDA events.
+  8. layers    one frame's stages timed one by one with CUDA events.
+  9. cli       python -m devc_tpu_torch.cli.colorize on the frames written
                as PNGs, when Pillow is installed (else says it skipped).
-  9. bf16      the bf16 mode (cli.colorize --bf16): K1's bf16 kernel
+ 10. bf16      the bf16 mode (cli.colorize --bf16): K1's bf16 kernel
                (scores on the tensor cores) at B = 1, N = 5184 and 20736
                against its plain version at T = 0.01, 1 and 1e-10, a
                second call bit-equal, an exact tie averaged exactly, with
@@ -65,15 +78,16 @@ line {"ok": true, "device": {...}}:
                fp32 frames (PSNR, largest uint8 difference, share of
                pixels moved), teacher-forced and free-running, on the
                random weights (and, in phase cli_train, on its checkpoint).
- 10. serve     the serving path: K2's batched pass (B = 4 guides, B = 3
+ 11. serve     the serving path: K2's batched pass (B = 4 guides, B = 3
                one shared guide, 432x768, both axes) and K1 at B = 4 and
                3 (N = 5184, T = 1e-10) vs their plain versions, with ms,
                bounds and SDPA; ClipBatchScheduler at 432x768 (4 slots,
                6 jobs of 5-9 PNG frames, one with a corrupt exemplar that
                fails alone): frame counts, each job's frame 0 within +-1
-               of the clip alone, one K1 and six K2 launches per batched
-               step, ms per step, frames/s, peak memory; a device_resize
-               run with one job at 540x960; colorize_video_multi with
+               of the clip alone, one K1, six K2 launches and a frame's
+               split convolutions per batched step, ms per step,
+               frames/s, peak memory; a device_resize run with one job
+               at 540x960; colorize_video_multi with
                R = 3 (launches, frame 0 within +-1 of serial runs); scan
                mode (chunk 4) bit-equal to stream, per-frame ms of both;
                the server's request handlers in process, each request
@@ -83,17 +97,17 @@ line {"ok": true, "device": {...}}:
                devc_tpu_torch.cli.serve as a subprocess (ready, ping, a
                job, a batch, shutdown, exit 0); a video file when cv2
                imports.
- 11. train_parity  one GAN training step at 64x128, batch 2, on the card
+ 12. train_parity  one GAN training step at 64x128, batch 2, on the card
                (kernels) against the same step on the CPU in fp32 and in
                float64 (plain versions), same weights and batch.
- 12. train     the training main path: train_step_u8 at batch 16, 216x384,
+ 13. train     the training main path: train_step_u8 at batch 16, 216x384,
                full width, TrainConfig defaults (T = 0.01, luminance noise
                2.0, remat), 1 warm-up + 4 timed steps: ms per step, peak
                memory, every loss, weights moved, kernel launch counts
                (per step K1 4 times: twice per frame, the forward and its
                recomputation under remat; K2b and K3 once per frame), and a
                checkpoint save / restore that must be bit-equal.
- 13. cli_train the trainer's entry point in process, on an ImageNet-style
+ 14. cli_train the trainer's entry point in process, on an ImageNet-style
                and a video-pairs dataset written to a temporary directory:
                python -m devc_tpu_torch.cli.train for 30 steps at batch
                16, 216x384, its defaults (8 loader threads, float
@@ -106,22 +120,23 @@ line {"ok": true, "device": {...}}:
                cli.colorize --train_ckpt on the 8 frames at 432x768 (K1 8,
                smooth_pass 48, chroma); the bf16 mode's quality on the
                exported checkpoint (as in phase bf16).
- 14. convergence  python -m devc_tpu_torch.examples.convergence_demo in
+ 15. convergence  python -m devc_tpu_torch.examples.convergence_demo in
                process on a generated scene tree (12 scenes of 3-4 stills,
                a palette each; `write_scene_tree`): 40 steps at batch 8,
                216x384, --holdout 2, --device-preprocess, then both
                held-out arms (the checkpoint, random weights) through
                cli.colorize and cli.evaluate at 224x384 on the card: exit
                0 (total_loss fell), every loss finite, launches K1 / K2b /
-               K3 4 / 2 / 2 a step, one K1 and six K2 launches a held-out
-               frame in each arm, the summary's schema, device memory
-               after the last step within 1% of that after step 10; ms a
+               K3 4 / 2 / 2 a step (no split convolution), one K1, six K2
+               launches and a 224x384 frame's split convolutions a
+               held-out frame in each arm, the summary's schema, device
+               memory after the last step within 1% of that after step 10; ms a
                step and the loader-wait share; before it K1 at the
                evaluation's shape (B = 1, N = 1344, T = 1e-10) and K2's
                pass over a 224x384 frame against their plain versions,
                with ms, plain ms, SDPA's ms and bounds. chip_convergence.py
                runs the same demo for 1000 steps.
- 15. parallel  the parallel layer, ranks as spawned processes (any rank
+ 16. parallel  the parallel layer, ranks as spawned processes (any rank
                that fails or runs late fails the phase; none is left
                running): K1 alone at the shard shapes (rows: N/2 queries;
                keys: N/2 keys with l) at N = 5184 and 20736 with ms, plain
@@ -935,6 +950,182 @@ def phase_parity(models_cpu, models_gpu, seed: int):
         assert bool(np.isfinite(got["cuda"][0].numpy()).all()), case
 
 
+# The split convolution's kernel launches at each frame size (H, W):
+# (one frame step, one exemplar preparation), a batch counting once, as
+# the card's launch plans give them; set by phase_conv_split, read by
+# every launch check after it (`_split_expected`)
+SPLIT_LAUNCHES = {}
+# the bound of both fp32 convolutions against float64, over max |x|*|w|
+# (tests/test_torch_kernels_cuda.py's CONV_FP32_BOUND), and the shapes
+# (c_in, c_out, k, stride, padding, dilation, H, W) where cuDNN's fp32
+# call is an FFT, 6-9x nearer float64 than its implicit GEMM: the split
+# kernel is held to 2^-23 there (the card test's FFT_SHAPES)
+SPLIT_FP32_BOUND = 2.0 ** -17
+SPLIT_FFT_SHAPES = ((256, 64, 3, 1, 0, 1, 28, 50),
+                    (256, 64, 3, 1, 0, 1, 29, 50))
+
+
+def _split_expected(frames: int, preps: int, hw=(H, W)) -> int:
+    """The split convolution's launches in `frames` frame steps and
+    `preps` exemplar preparations at frame size hw."""
+    frame, prep = SPLIT_LAUNCHES[hw]
+    return frames * frame + preps * prep
+
+
+def _split_record(models, fn):
+    """(fn(), the split convolution calls it made): for each Conv2d call
+    the rule took, its input, weights and arguments and the launches its
+    launch plan gives (one, two where the depth is split); their sum is
+    checked against the kernel's own counter."""
+    from devc_tpu_torch.ops import conv_split
+    from devc_tpu_torch.ops.layers import Conv2d
+
+    calls = []
+
+    def hook(m, inputs, out):
+        x = inputs[0]
+        if not m._engages(x):
+            return
+        _, c, h, wd = x.shape
+        args = (m.stride[0], m.padding[0], m.dilation[0])
+        k = m.kernel_size[0]
+        splits = conv_split.launch_plan(c, h, wd, m.out_channels, k, *args,
+                                        x.device)[2]
+        calls.append({"x": x, "w_split": m._split_weight(m.weight),
+                      "bias": m.bias, "w": m.weight, "args": args, "k": k,
+                      "launches": 1 + (splits > 1)})
+
+    hooks = [m.register_forward_hook(hook) for m in models.modules()
+             if isinstance(m, Conv2d)]
+    before = conv_split.split_conv2d.launches
+    try:
+        out = fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    launched = conv_split.split_conv2d.launches - before
+    assert launched == sum(c["launches"] for c in calls), launched
+    return out, calls
+
+
+def _split_case(key, call, frame: int, prep: int) -> dict:
+    """One convolution shape on its recorded inputs: the split kernel
+    against its plain version and float64, and no farther from float64
+    than cuDNN's fp32 call; ms of the three and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from devc_tpu_torch.ops import conv_split
+
+    cin, cout, k, stride, pad, dil, h, w = key
+    x, ws, b, wt = call["x"], call["w_split"], call["bias"], call["w"]
+    args = call["args"]
+    kernel = lambda: conv_split.split_conv2d(x, ws, b, *args, k, wt)
+    plain = lambda: conv_split.split_conv2d_plain(x, wt, b, *args)
+    library = lambda: F.conv2d(x, wt, b, *args)
+    with torch.inference_mode():
+        got, want, y32 = kernel(), plain(), library()
+        y64 = F.conv2d(x.double(), wt.double(),
+                       None if b is None else b.double(), *args)
+        scale = F.conv2d(x.double().abs(), wt.double().abs(), None,
+                         *args).amax().item()
+        err = {name: (y.double() - ref).abs().max().item()
+               for name, y, ref in (("plain", got, want.double()),
+                                    ("float64", got, y64),
+                                    ("library", y32, y64))}
+        case = {"c_in": cin, "c_out": cout, "k": k, "stride": stride,
+                "pad": pad, "dil": dil, "h": h, "w": w,
+                "count_frame": frame, "count_prep": prep,
+                "launches": call["launches"],
+                "max_abs_err": err["float64"],
+                "rel_err_vs_plain": err["plain"] / scale,
+                "rel_err_vs_float64": err["float64"] / scale,
+                "library_rel_err_vs_float64": err["library"] / scale,
+                "library_fft": key in SPLIT_FFT_SHAPES,
+                "second_call_bit_equal": torch.equal(got, kernel())}
+        case["ms"] = cuda_ms(kernel, queued=True)
+        case["plain_ms"] = cuda_ms(plain, reps=3, warmup=1, queued=True)
+        case["library_ms"] = cuda_ms(library, queued=True)
+    oh, ow = got.shape[2:]
+    flop = 2.0 * cout * oh * ow * cin * k * k
+    nbytes = 4 * (x.numel() + ws.numel() + got.numel() + cout)
+    case.update(bound(0.0, nbytes, flop))
+    case["share_of_bound"] = case["bound_ms"] / case["ms"]
+    emit("conv_split", **case)
+    assert not torch.backends.cudnn.allow_tf32
+    assert case["second_call_bit_equal"], case
+    assert max(case["rel_err_vs_plain"], case["rel_err_vs_float64"],
+               case["library_rel_err_vs_float64"]) <= SPLIT_FP32_BOUND, case
+    if case["library_fft"]:
+        assert case["rel_err_vs_float64"] <= 2.0 ** -23, case
+    else:
+        assert (case["rel_err_vs_float64"]
+                <= case["library_rel_err_vs_float64"]), case
+    return case
+
+
+def phase_conv_split(models, seed: int, card: str) -> dict:
+    """The split convolution at the main path's shapes (phase 6); sets
+    SPLIT_LAUNCHES. Returns the kernel's summary: a frame's 57 split calls
+    summed, each distinct shape under `by_shape`."""
+    import torch
+
+    from devc_tpu_torch.pipeline import video
+
+    recorded = {}
+    for hw in ((H, W), CONV_EVAL_HW):
+        ref, rgb = (torch.from_numpy(f).to(models.device)
+                    for f in textured_frames(seed + 70, 2, hw))
+        (_, state), prep = _split_record(
+            models, lambda: video._device_ref_features(models, ref))
+        carry = torch.zeros((1, hw[0] // 2, hw[1] // 2, 3),
+                            device=models.device)
+        _, frame = _split_record(
+            models, lambda: video.frame_step(models, rgb, carry, state))
+        SPLIT_LAUNCHES[hw] = (sum(c["launches"] for c in frame),
+                              sum(c["launches"] for c in prep))
+        recorded[hw] = prep, frame
+    prep, frame = recorded[(H, W)]
+    emit("conv_split", check="launches", calls_a_frame=len(frame),
+         calls_a_preparation=len(prep),
+         launches={f"{h}x{w}": {"frame": f, "preparation": p}
+                   for (h, w), (f, p) in SPLIT_LAUNCHES.items()})
+    # 57 of a frame's 60 convolutions, 28 of a preparation's 29 (the 3- and
+    # 7-channel first layers and conv10_ab's 2 outputs stay on cuDNN)
+    assert (len(frame), len(prep)) == (57, 28), (len(frame), len(prep))
+
+    shapes = {}
+    for where, calls in (("frame", frame), ("prep", prep)):
+        for c in calls:
+            x, cout = c["x"], c["w_split"].shape[1]
+            key = (x.shape[1], cout, c["k"], *c["args"], *x.shape[2:])
+            entry = shapes.setdefault(key, {"call": c, "frame": 0,
+                                            "prep": 0})
+            entry[where] += 1
+    cases = [_split_case(key, **entry) for key, entry in shapes.items()]
+    a_frame = lambda name: sum(c[name] * c["count_frame"] for c in cases)
+    summary = {
+        "shape": f"the {len(frame)} split convolutions of a {H}x{W} frame "
+                 f"({sum(c['count_frame'] > 0 for c in cases)} shapes)",
+        "ms": a_frame("ms"), "plain_ms": a_frame("plain_ms"),
+        "library_ms": a_frame("library_ms"),
+        "library_call": "F.conv2d fp32, TF32 off (cuDNN)",
+        "bound_ms": a_frame("bound_ms"), "bound_by": "each shape's (by_shape)",
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "max_rel_err_vs_float64": max(c["rel_err_vs_float64"]
+                                      for c in cases),
+        "frame_launches": SPLIT_LAUNCHES[(H, W)][0],
+        "by_shape": [{k: c[k] for k in (
+            "c_in", "c_out", "k", "stride", "pad", "dil", "h", "w",
+            "count_frame", "count_prep", "launches", "ms", "plain_ms",
+            "library_ms", "bound_ms", "rel_err_vs_float64",
+            "library_rel_err_vs_float64")} for c in cases]}
+    summary["share_of_bound"] = summary["bound_ms"] / summary["ms"]
+    emit("conv_split", check="frame", card=card,
+         **{k: v for k, v in summary.items() if k != "by_shape"})
+    return summary
+
+
 def phase_main(models, seed: int, card: str):
     import numpy as np
     import torch
@@ -965,10 +1156,12 @@ def phase_main(models, seed: int, card: str):
     chroma = max(int(np.abs(o[..., 0].astype(int) - o[..., 1]).max())
                  for o in outs)
     assert chroma > 3, "outputs are gray: no chroma was added"
-    # K1 once and K2's smoother pass six times per frame; the general
+    # K1 once, K2's smoother pass six times and a frame's split
+    # convolutions per frame, and one exemplar's preparation; the general
     # solve is not on the path
     assert launches == {"corr_fwd": N_FRAMES, "smooth_pass": 6 * N_FRAMES,
-                        "tridiag_pcr": 0}, launches
+                        "tridiag_pcr": 0, "split_conv2d": _split_expected(
+                            N_FRAMES, 1)}, launches
     # frame-to-frame intervals on the stream, first frame excluded
     per_frame = [events[i - 1].elapsed_time(events[i])
                  for i in range(1, len(events))]
@@ -1187,20 +1380,22 @@ def _k1_inference_case(rng, dev, b: int, n: int, shared: bool, phase: str,
 
 
 def _counts_zero():
-    from devc_tpu_torch.ops import cuda_corr, fgs
+    from devc_tpu_torch.ops import conv_split, cuda_corr, fgs
 
     cuda_corr.corr_fwd.launches = 0
     cuda_corr.corr_fwd.bf16_launches = 0
     fgs.smooth_pass.launches = 0
     fgs.tridiag_pcr.launches = 0
+    conv_split.split_conv2d.launches = 0
 
 
 def _counts():
-    from devc_tpu_torch.ops import cuda_corr, fgs
+    from devc_tpu_torch.ops import conv_split, cuda_corr, fgs
 
     return {"corr_fwd": cuda_corr.corr_fwd.launches,
             "smooth_pass": fgs.smooth_pass.launches,
-            "tridiag_pcr": fgs.tridiag_pcr.launches}
+            "tridiag_pcr": fgs.tridiag_pcr.launches,
+            "split_conv2d": conv_split.split_conv2d.launches}
 
 
 def _alone_frame0(models, frames, ref):
@@ -1315,9 +1510,12 @@ def _serve_scheduler(models, tmp, seed, card):
             / step_ms, "frame_step_ms_b1": frame_ms, "peak_mem_mib": peak,
             "card": card}
     emit("serve", **case)
-    # one K1 launch and six K2 launches per batched step
+    # one K1 launch, six K2 launches and a frame's split convolutions (the
+    # batch in each call) per batched step; one exemplar preparation per
+    # job, but the corrupt exemplar's
     assert launches == {"corr_fwd": steps, "smooth_pass": 6 * steps,
-                        "tridiag_pcr": 0}, (launches, steps)
+                        "tridiag_pcr": 0, "split_conv2d": _split_expected(
+                            steps, len(jobs) - 1)}, (launches, steps)
     assert all(d["max"] <= 1 for d in frame0.values()), frame0
 
     # the same good jobs written as JPEG (the server's default): how much
@@ -1384,7 +1582,8 @@ def _serve_scheduler(models, tmp, seed, card):
     emit("serve", **case)
     assert launches == {"corr_fwd": sched.stats["steps"],
                         "smooth_pass": 6 * sched.stats["steps"],
-                        "tridiag_pcr": 0}, launches
+                        "tridiag_pcr": 0, "split_conv2d": _split_expected(
+                            sched.stats["steps"], len(picked))}, launches
     assert all(frame0[j]["max"] <= 1 for j in picked[:2]), frame0
     assert frame0[picked[2]]["psnr"] > 30.0, frame0
     return jobs, serve_launches
@@ -1486,14 +1685,21 @@ def _serve_multi_and_scan(models, tmp, jobs, frames, ref, main_outs, card):
                     "the replays are replays x launches per replay",
             "ms": ms, "card": card}
     emit("serve", **case)
+    # the R = 3 exemplars prepared in one batch, and each frame's networks
+    # once (the split calls take the R-batched ColorVidNet whole)
     assert multi_launches == {"corr_fwd": len(frames),
                               "smooth_pass": 6 * len(frames),
-                              "tridiag_pcr": 0}, multi_launches
+                              "tridiag_pcr": 0,
+                              "split_conv2d": _split_expected(
+                                  len(frames), 1)}, multi_launches
     assert all(d["max"] <= 1 for d in frame0.values()), frame0
     assert all(scan_equal) and len(scan) == len(frames), scan_equal
     assert runner.replays == len(frames)
-    assert runner.kernel_launches == {"corr_fwd": 1, "smooth_pass": 6,
-                                      "tridiag_pcr": 0}
+    # a replay launches what an eager frame step does: 57 split calls and
+    # their summing launches
+    assert runner.kernel_launches == {
+        "corr_fwd": 1, "smooth_pass": 6, "tridiag_pcr": 0,
+        "split_conv2d": _split_expected(1, 0)}, runner.kernel_launches
     return clip, ref_paths[0]
 
 
@@ -2219,7 +2425,9 @@ def phase_cli_train(frames, ref, seed: int, card: str):
         assert chroma > 3, "outputs are gray: no chroma was added"
         assert col_launches == {"corr_fwd": len(frames),
                                 "smooth_pass": 6 * len(frames),
-                                "tridiag_pcr": 0}, col_launches
+                                "tridiag_pcr": 0,
+                                "split_conv2d": _split_expected(
+                                    len(frames), 1)}, col_launches
         assert psnr > 30.0, psnr
         del models
         # cli.colorize --train_ckpt --bf16 on the same checkpoint: K1's
@@ -2246,6 +2454,8 @@ def phase_cli_train(frames, ref, seed: int, card: str):
              psnr_vs_fp32_run=psnr16, card=card)
         assert len(outs16) == len(frames), len(outs16)
         assert bf16_launches["corr_fwd_bf16"] == len(frames), bf16_launches
+        # bf16 convolutions take cuDNN's call
+        assert bf16_launches["split_conv2d"] == 0, bf16_launches
         # the bf16 mode's quality on the only trained generator at hand
         _bf16_quality(exported_sds, frames, ref,
                       f"cli.train checkpoint, step {n + 2}", card)
@@ -2406,7 +2616,9 @@ def convergence_report(rec: dict, steps: int, mem_from: int) -> dict:
     assert rec["rc"] == 0, ("total_loss did not fall", summary["losses"])
     assert not report["nonfinite"], report["nonfinite"]
     assert [m["step"] for m in rec["metrics"]] == list(range(1, steps + 1))
-    zero = {"smooth_pass": 0, "tridiag_pcr": 0, "corr_fwd_bf16": 0}
+    # training takes no split convolution (autograd, not inference mode)
+    zero = {"smooth_pass": 0, "tridiag_pcr": 0, "corr_fwd_bf16": 0,
+            "split_conv2d": 0}
     assert rec["train_launches"] == dict(
         zero, corr_fwd=4 * steps, corr_bwd_dq=2 * steps,
         corr_bwd_dkv=2 * steps), rec["train_launches"]
@@ -2417,7 +2629,8 @@ def convergence_report(rec: dict, steps: int, mem_from: int) -> dict:
         n = c["frames"]
         assert c["launches"] == dict(
             corr_fwd=n, smooth_pass=6 * n, tridiag_pcr=0, corr_bwd_dq=0,
-            corr_bwd_dkv=0, corr_fwd_bf16=0), c
+            corr_bwd_dkv=0, corr_fwd_bf16=0,
+            split_conv2d=_split_expected(n, 1, CONV_EVAL_HW)), c
     assert sorted(summary) == ["holdout", "losses", "steps", "window"]
     assert sorted(summary["losses"]) == sorted(CONV_LOSSES)
     assert all(sorted(v) == ["first", "last"]
@@ -2825,7 +3038,7 @@ def phase_bf16(sds, frames, ref, seed: int, card: str):
          max_r_minus_g=chroma, card=card)
     assert n == N_FRAMES and len(scan) == N_FRAMES, (n, len(scan))
     assert launches == {"corr_fwd": N_FRAMES, "smooth_pass": 6 * N_FRAMES,
-                        "tridiag_pcr": 0}, launches
+                        "tridiag_pcr": 0, "split_conv2d": 0}, launches
     assert bf16_k1 == N_FRAMES, bf16_k1
     assert all(scan_equal), scan_equal
     assert chroma > 3, "outputs are gray: no chroma was added"
@@ -3300,6 +3513,10 @@ def phase_parallel(seed: int, card: str, fp32_noise: dict):
     # per rank: 2 frames x 2 kinds + the batched step, one K1 each
     assert parallel["corr_fwd"] == PAR_WORLD * 5, parallel
     assert parallel["smooth_pass"] == PAR_WORLD * 5 * 6, parallel
+    # and a frame's split convolutions each, with the data-parallel
+    # step's exemplar preparation (2 a rank, one batch)
+    assert parallel["split_conv2d"] == PAR_WORLD * _split_expected(
+        5, 1), parallel
 
     # the one-process step's gradients at train_parity's settings
     weights = train_weights(seed, 1e-3)
@@ -3422,6 +3639,7 @@ def main(argv=None) -> int:
     models = PipelineModels.from_state_dicts(sds, "cuda")
     phase_parity(PipelineModels.from_state_dicts(sds, "cpu"), models,
                  args.seed)
+    split = phase_conv_split(models, args.seed, card)
     launches, outs, ref, frames = phase_main(models, args.seed, card)
     phase_layers(models, ref, frames[0], card)
     phase_cli(frames, ref, args.seed, outs)
@@ -3526,7 +3744,9 @@ def main(argv=None) -> int:
             ("corr_bwd_dq", "corr_bwd.cu", "devc_tpu/ops/pallas_corr.py:218",
              bwd["corr_bwd_dq"]),
             ("corr_bwd_dkv", "corr_bwd.cu", "devc_tpu/ops/pallas_corr.py:246",
-             bwd["corr_bwd_dkv"])]
+             bwd["corr_bwd_dkv"]),
+            ("split_conv2d", "conv_split.cu",
+             "none: devc_tpu's convolutions are XLA's", split)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"devc_tpu_torch/csrc/{src}", "replaces": replaces,

@@ -36,6 +36,8 @@
 //     per atom bounds it by 12 steps at |p| plus C / 32 rounded adds at
 //     |s|;
 //   * s starts at 0.f, so the first atom's sum is p itself.
+// The fp32-accurate convolution (conv_split.cu) forms its products by the
+// same rule, with the input's atom in registers (score_atom_ra).
 // Nothing else forms an fp32 score: K1's bf16 kernel (corr_fwd_bf16.cu)
 // has its own bf16 products (nothing reads its m), and the products
 // dtheta and dphi (corr_bwd.cu) need no fixed order.
@@ -129,6 +131,48 @@ __device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (+)= A B as wgmma_tf32_m64n128k8, with A (64 rows x 8 channels, tf32)
+// from registers: a[r] of each warp's 16 rows in the m16n8k8 layout, row
+// lane / 4 (+ 8 for r = 1, 3), channel lane % 4 (+ 4 for r = 2, 3).
+__device__ __forceinline__ void wgmma_tf32_m64n128k8_ra(float (&d)[64],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t db,
+                                                        int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // One atom of the rule for a warpgroup: s += the partial over 32 channels
 // of its 64 theta rows (hi and lo atoms at a_hi, a_lo: [64][32] fp32,
 // swizzled) and a tile's 128 phi rows (b_hi, b_lo: [128][32]). p is the
@@ -151,6 +195,38 @@ __device__ __forceinline__ void score_atom(float (&s)[64], float (&p)[64],
   for (int k = 0; k < kScoreAtom / 8; ++k)
     wgmma_tf32_m64n128k8(p, desc_sw128(a_hi + 32 * k),
                          desc_sw128(b_hi + 32 * k), 1);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_acc(p);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] += p[i];
+}
+
+// score_atom with the 64 rows' atom from registers: a_hi[4 k + r] and
+// a_lo[4 k + r] are register r of step k (channels 8 k ..) of each warp's
+// rows in wgmma_tf32_m64n128k8_ra's layout; the same products in the same
+// order, so the same bits as score_atom on the same values.
+__device__ __forceinline__ void score_atom_ra(float (&s)[64], float (&p)[64],
+                                              const uint32_t (&a_hi)[16],
+                                              const uint32_t (&a_lo)[16],
+                                              uint32_t b_hi, uint32_t b_lo) {
+  fence_acc(p);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < kScoreAtom / 8; ++k) {
+    const uint32_t lo[4] = {a_lo[4 * k], a_lo[4 * k + 1], a_lo[4 * k + 2],
+                            a_lo[4 * k + 3]};
+    const uint32_t hi[4] = {a_hi[4 * k], a_hi[4 * k + 1], a_hi[4 * k + 2],
+                            a_hi[4 * k + 3]};
+    wgmma_tf32_m64n128k8_ra(p, lo, desc_sw128(b_hi + 32 * k), k > 0);
+    wgmma_tf32_m64n128k8_ra(p, hi, desc_sw128(b_lo + 32 * k), 1);
+  }
+#pragma unroll
+  for (int k = 0; k < kScoreAtom / 8; ++k) {
+    const uint32_t hi[4] = {a_hi[4 * k], a_hi[4 * k + 1], a_hi[4 * k + 2],
+                            a_hi[4 * k + 3]};
+    wgmma_tf32_m64n128k8_ra(p, hi, desc_sw128(b_hi + 32 * k), 1);
+  }
   wgmma_commit();
   wgmma_wait_all();
   fence_acc(p);

@@ -2,12 +2,12 @@
 frame (the port's counterpart of devc_tpu's `_device_chunk_scan`, which
 runs K frames as one lax.scan program).
 
-A 432x768 frame step is ~850 kernel launches, and the host's time to
-issue them shows as a gap between frames. `CapturedStep` records the step
-once and replays it: one graph launch per frame, the recurrent carry kept
-on the card. The caller hands it `chunk` frames at a time (one upload and
-one download per chunk), and it replays the graph once per frame of the
-chunk; a tail chunk replays only its valid frames.
+A 432x768 frame step is some 500 kernel launches, and the host's time
+to issue them shows as a gap between frames. `CapturedStep` records the
+step once and replays it: one graph launch per frame, the recurrent carry
+kept on the card. The caller hands it `chunk` frames at a time (one upload
+and one download per chunk), and it replays the graph once per frame of
+the chunk; a tail chunk replays only its valid frames.
 
 Capture needs fixed addresses and no host syncs inside the step:
   * the uint8 frame and the carry are static buffers; the step reads them
@@ -18,11 +18,12 @@ Capture needs fixed addresses and no host syncs inside the step:
     stays alive at its addresses for the graph's life;
   * one warm-up step runs on a side stream before the capture, so that
     everything done once (the kernel library's load, cudaFuncSetAttribute,
-    cuBLAS / cuDNN handles, the colour constants' upload) happens outside
-    it. The side stream is one per card, shared by every capture: cuBLAS
-    keeps a 32 MiB workspace for each stream it has run on and never
-    frees it, so a new stream per capture grew a long-lived server's
-    memory by 32 MiB with every scan-mode request.
+    cuBLAS / cuDNN handles, the colour constants' upload, the split
+    convolutions' split weights) happens outside it. The side stream is
+    one per card, shared by every capture: cuBLAS keeps a 32 MiB
+    workspace for each stream it has run on and never frees it, so a new
+    stream per capture grew a long-lived server's memory by 32 MiB with
+    every scan-mode request.
 The step may run its networks in bf16 (--bf16): the frame buffer stays
 uint8 and the carry fp32, so the capture is the same.
 cuDNN's autotuner stays off (`torch.backends.cudnn.benchmark` False), so
@@ -58,7 +59,7 @@ class CapturedStep:
     """
 
     def __init__(self, step, frame_shape, carry):
-        from devc_tpu_torch.ops import cuda_corr, fgs
+        from devc_tpu_torch.ops import conv_split, cuda_corr, fgs
 
         if carry.device.type != "cuda":
             raise ValueError("CapturedStep: the carry must be on the card")
@@ -66,7 +67,8 @@ class CapturedStep:
             raise RuntimeError("CapturedStep: cuDNN's autotuner is on; the "
                                "captured step could pick other algorithms "
                                "than the eager one")
-        counters = (cuda_corr.corr_fwd, fgs.smooth_pass, fgs.tridiag_pcr)
+        counters = (cuda_corr.corr_fwd, fgs.smooth_pass, fgs.tridiag_pcr,
+                    conv_split.split_conv2d)
         device = carry.device
         with torch.inference_mode():
             self.frame = torch.zeros(frame_shape, dtype=torch.uint8,

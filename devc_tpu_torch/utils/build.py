@@ -39,6 +39,9 @@ _SIGNATURES = {
     "devc_corr_fwd_smem": ([], _I),
     # src, dst, rows, c, stream: the score rule's TF32 split alone
     "devc_split_tf32": ([_P, _P, ctypes.c_longlong, _I, _P], _I),
+    # x, w_split, bias, out, part, n, c, h, w, cout, oh, ow, k, stride,
+    # pad, dil, splits, stream: the split convolution (conv_split.cu)
+    "devc_conv_split": ([_P] * 5 + [_I] * 12 + [_P], _I),
     # theta, phi, values, out, sim, l_out, part, batch, nq, nk, c, splits,
     # inv_t, stream; theta / phi / out in bf16 (corr_fwd_bf16.cu)
     "devc_corr_fwd_bf16": ([_P] * 7 + [_I] * 5 + [ctypes.c_float, _P], _I),

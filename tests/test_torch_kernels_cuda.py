@@ -1,9 +1,10 @@
 """CUDA kernels K1 (fused correspondence), K2 (the smoother pass, one
 image or a batch, and the general tridiagonal solve) and the
 correspondence backward kernels K2b/K3 vs their plain PyTorch versions on
-the card, and the serving path's device steps (captured scan-mode replays
-against stream mode, the batched step against the CPU, the device
-CenterPad against the host). Needs no JAX.
+the card, the split convolution (ops/conv_split.py) against float64 and
+cuDNN's fp32 call, and the serving path's device steps (captured
+scan-mode replays against stream mode, the batched step against the CPU,
+the device CenterPad against the host). Needs no JAX.
 
 Every test here needs an NVIDIA GPU and nvcc (a CUDA kernel has no CPU
 mode) and is skipped without one. Run them on the card with
@@ -685,8 +686,34 @@ def test_scan_replays_equal_stream(cuda, multi, monkeypatch):
         assert np.array_equal(a, b)
     (runner,) = runners
     assert runner.replays == 5
-    assert runner.kernel_launches == {"corr_fwd": 1, "smooth_pass": 6,
-                                      "tridiag_pcr": 0}
+    launches = dict(runner.kernel_launches)
+    split = launches.pop("split_conv2d")
+    assert split == _split_launches_a_frame(
+        models, frames[0], refs if multi else refs[0], multi) > 0
+    assert launches == {"corr_fwd": 1, "smooth_pass": 6, "tridiag_pcr": 0}
+
+
+def _split_launches_a_frame(models, rgb, ref, multi):
+    """The split convolution's launches in one eager frame step (after the
+    exemplar's preparation)."""
+    from devc_tpu_torch.ops import conv_split
+    from devc_tpu_torch.pipeline import video
+
+    dev = models.device
+    rgb = torch.from_numpy(rgb).to(dev)
+    h, w = rgb.shape[0] // 2, rgb.shape[1] // 2
+    if multi:
+        _, state = video._device_ref_features_multi(
+            models, torch.from_numpy(np.stack(ref)).to(dev))
+        step = video.frame_step_multi
+    else:
+        _, state = video._device_ref_features(models,
+                                              torch.from_numpy(ref).to(dev))
+        step = video.frame_step
+    carry = torch.zeros((len(ref) if multi else 1, h, w, 3), device=dev)
+    before = conv_split.split_conv2d.launches
+    step(models, rgb, carry, state)
+    return conv_split.split_conv2d.launches - before
 
 
 def test_bf16_scan_replays_equal_stream(cuda, monkeypatch):
@@ -716,8 +743,9 @@ def test_bf16_scan_replays_equal_stream(cuda, monkeypatch):
         assert np.array_equal(a, b)
     (runner,) = runners
     assert runner.replays == 5
+    # bf16 convolutions take the plain call
     assert runner.kernel_launches == {"corr_fwd": 1, "smooth_pass": 6,
-                                      "tridiag_pcr": 0}
+                                      "tridiag_pcr": 0, "split_conv2d": 0}
 
 
 def test_batched_frame_step_on_card_matches_cpu(cuda):
@@ -771,3 +799,280 @@ def test_device_centerpad_on_card(cuda):
     for img in got.cpu().numpy():
         diff = np.abs(img.astype(int) - want)
         assert diff.max() <= 1 and (diff > 0).mean() < 0.02
+
+
+# The split convolution (ops/conv_split.py, csrc/conv_split.cu, run by
+# layers.Conv2d): every distinct convolution of VGG19, WarpNet and
+# ColorVidNet at 432x768 (the exemplar's preparation and a frame;
+# chip_conv_probe.py --split lists them with their counts): (c_in, c_out,
+# k, stride, padding, dilation, input H, W).
+NETWORK_CONV_SHAPES = (
+    (3, 64, 3, 1, 1, 1, 216, 384), (7, 32, 3, 1, 1, 1, 216, 384),
+    (32, 64, 3, 1, 1, 1, 216, 384), (64, 64, 3, 1, 1, 1, 216, 384),
+    (64, 128, 3, 1, 1, 1, 108, 192), (64, 128, 3, 1, 1, 1, 216, 384),
+    (128, 2, 1, 1, 0, 1, 216, 384), (128, 64, 3, 1, 0, 1, 56, 98),
+    (128, 64, 3, 2, 0, 1, 110, 194), (128, 128, 3, 1, 0, 1, 110, 194),
+    (128, 128, 3, 1, 1, 1, 108, 192), (128, 128, 3, 1, 1, 1, 216, 384),
+    (128, 256, 3, 1, 1, 1, 54, 96), (256, 64, 3, 1, 0, 1, 28, 50),
+    (256, 64, 3, 1, 0, 1, 29, 50), (256, 128, 3, 1, 0, 1, 56, 98),
+    (256, 128, 3, 1, 1, 1, 108, 192), (256, 256, 1, 1, 0, 1, 54, 96),
+    (256, 256, 3, 1, 0, 1, 56, 98), (256, 256, 3, 1, 1, 1, 54, 96),
+    (256, 512, 3, 1, 1, 1, 27, 48), (512, 256, 3, 1, 0, 1, 15, 26),
+    (512, 256, 3, 1, 0, 1, 29, 50), (512, 256, 3, 1, 1, 1, 54, 96),
+    (512, 512, 3, 1, 1, 1, 13, 24), (512, 512, 3, 1, 1, 1, 27, 48),
+    (512, 512, 3, 1, 2, 2, 27, 48),
+)
+# the bound of both fp32 convolutions against float64, over max |x|*|w|
+# (the convolution of the magnitudes): a few ulps of fp32 over sums of
+# up to 4608 terms
+CONV_FP32_BOUND = 2.0 ** -17
+# The two shapes where cuDNN's fp32 call takes an FFT algorithm
+# (fft2d_r2c / c2r kernels, chip_conv_probe.py --split), which lands
+# 3.3-3.8e-8 from float64 there, 6-9x nearer than its implicit GEMM does
+# at every other shape; the split kernel lands 3.4-4.2e-8. There the split
+# call is held to 2^-23 (1.2e-7) instead, below cuDNN's distance at every
+# other shape (1.5-3.6e-7).
+FFT_SHAPES = ((256, 64, 3, 1, 0, 1, 28, 50), (256, 64, 3, 1, 0, 1, 29, 50))
+
+
+def _conv_case(shape, device, batch=1):
+    """ReLU'd inputs and weights at the networks' scale for one shape."""
+    cin, cout, k, stride, pad, dil, h, w = shape
+    gen = torch.Generator(device="cpu").manual_seed(cin * 7 + cout + h)
+    x = torch.randn(batch, cin, h, w, generator=gen).relu_().to(device)
+    wt = (torch.randn(cout, cin, k, k, generator=gen)
+          * (2.0 / (cin * k * k)) ** 0.5).to(device)
+    b = (torch.randn(cout, generator=gen) * 0.1).to(device)
+    return x, wt, b
+
+
+def _launches_of(x, cout, k, stride, pad, dil):
+    """The split convolution's kernel launches in one call on x: one, and
+    the summing launch where the call's depth is split."""
+    from devc_tpu_torch.ops import conv_split
+
+    _, c, h, w = x.shape
+    plan = conv_split.launch_plan(c, h, w, cout, k, stride, pad, dil,
+                                  x.device)
+    return 1 + (plan[2] > 1)
+
+
+def _conv_module(wt, b, stride, pad, dil):
+    from devc_tpu_torch.ops.layers import Conv2d
+
+    cout, cin, k, _ = wt.shape
+    conv = Conv2d(cin, cout, k, stride=stride, padding=pad, dilation=dil)
+    with torch.no_grad():
+        conv.weight.copy_(wt)
+        conv.bias.copy_(b)
+    return conv.to(wt.device).requires_grad_(False)
+
+
+@pytest.mark.parametrize("shape", NETWORK_CONV_SHAPES)
+def test_split_conv_near_float64(cuda, shape):
+    """Each network convolution at 432x768 through layers.Conv2d under
+    inference mode (batch 1): where the rule engages, one launch of the
+    split kernel, within the fp32 bound of the float64 convolution and no
+    farther from it than cuDNN's plain fp32 call (C15; see FFT_SHAPES for
+    the two where that call is an FFT); where it does not
+    (3 or 7 input channels, 2 outputs), cuDNN's call, bit for bit. The
+    global TF32 flag stays off."""
+    import torch.nn.functional as F
+
+    from devc_tpu_torch.ops import conv_split
+    from devc_tpu_torch.ops.layers import Conv2d
+
+    cin, cout, k, stride, pad, dil, h, w = shape
+    x, wt, b = _conv_case(shape, cuda)
+    conv = _conv_module(wt, b, stride, pad, dil)
+    args = (stride, pad, dil)
+    with torch.inference_mode():
+        calls = (Conv2d.split_calls, conv_split.split_conv2d.launches)
+        got = conv(x)
+        y32 = F.conv2d(x, wt, b, *args)
+        torch.cuda.synchronize()
+        engaged = Conv2d.split_calls - calls[0]
+        assert conv_split.split_conv2d.launches - calls[1] == engaged * (
+            _launches_of(x, cout, k, stride, pad, dil))
+    assert not torch.backends.cudnn.allow_tf32
+    assert engaged == conv_split.shape_rule(cin, cout, (k, k), (h, w))
+    assert got.shape == y32.shape and got.is_contiguous()
+    if not engaged:
+        assert cin % 32 or cout < 16
+        assert torch.equal(got, y32)
+        return
+    y64 = F.conv2d(x.double(), wt.double(), b.double(), *args)
+    scale = F.conv2d(x.double().abs(), wt.double().abs(), None,
+                     *args).amax().item()
+    err32, err = ((y.double() - y64).abs().max().item() / scale
+                  for y in (y32, got))
+    print("conv", shape, "fp32", err32, "split", err)
+    assert err32 <= CONV_FP32_BOUND and err <= CONV_FP32_BOUND, (err32, err)
+    if shape in FFT_SHAPES:
+        assert err <= 2.0 ** -23, err
+    else:
+        assert err <= err32, (err, err32)
+
+
+# ragged pixel tiles and output channels (48: part of a 128-channel
+# tile), stride 2, dilation 2, 1x1, a batch of 3
+@pytest.mark.parametrize("shape", [(32, 48, 3, 1, 1, 1, 9, 13),
+                                   (64, 200, 3, 2, 0, 1, 17, 11),
+                                   (96, 16, 3, 1, 2, 2, 20, 7),
+                                   (160, 130, 1, 1, 0, 1, 5, 3)])
+def test_split_conv_batch_and_ragged(cuda, shape):
+    """A batch of 3 is one call and each sample's output is its own
+    batch-1 call's bits; ragged shapes lie within the fp32 bound of the
+    float64 convolution; a second call gives the same bits."""
+    import torch.nn.functional as F
+
+    from devc_tpu_torch.ops import conv_split
+
+    cin, cout, k, stride, pad, dil, h, w = shape
+    x, wt, b = _conv_case(shape, cuda, batch=3)
+    ws = conv_split.weight_split(wt)
+    before = conv_split.split_conv2d.launches
+    got = conv_split.split_conv2d(x, ws, b, stride, pad, dil, k)
+    assert conv_split.split_conv2d.launches == before + _launches_of(
+        x, cout, k, stride, pad, dil)
+    again = conv_split.split_conv2d(x, ws, b, stride, pad, dil, k)
+    assert torch.equal(got, again)
+    for i in range(3):
+        one = conv_split.split_conv2d(x[i:i + 1], ws, b, stride, pad, dil, k)
+        assert torch.equal(got[i:i + 1], one)
+    nobias = conv_split.split_conv2d(x, ws, None, stride, pad, dil, k)
+    assert torch.equal(got, nobias + b.reshape(1, -1, 1, 1))
+    args = (stride, pad, dil)
+    y64 = F.conv2d(x.double(), wt.double(), b.double(), *args)
+    scale = F.conv2d(x.double().abs(), wt.double().abs(), None,
+                     *args).amax().item()
+    assert (got.double() - y64).abs().max().item() <= CONV_FP32_BOUND * scale
+
+
+def test_split_weight_is_the_score_rules_split(cuda):
+    """The weight the kernel reads, split by the plain version on the
+    card, is K1's pre-pass (cuda_corr.split_tf32) of the tap-major weight,
+    bit for bit, and the plain version gives the same bits on the CPU."""
+    from devc_tpu_torch.ops import conv_split
+
+    x, wt, b = _conv_case((64, 48, 3, 1, 1, 1, 4, 4), cuda)
+    got = conv_split.weight_split(wt)
+    taps = wt.permute(2, 3, 0, 1).reshape(9, 48, 64).contiguous()
+    assert torch.equal(got.view(torch.int32),
+                       cuda_corr.split_tf32(taps).view(torch.int32))
+    assert torch.equal(got.cpu().view(torch.int32),
+                       conv_split.weight_split(wt.cpu()).view(torch.int32))
+
+
+def _network_inputs(models, device):
+    """The three networks' inputs at 432x768 from one textured frame and
+    exemplar, made in fp32: (VGG19's gray RGB, the normalised taps for the
+    query embedding, ColorVidNet's 7 channels)."""
+    from devc_tpu_torch import colorspace as cs
+    from devc_tpu_torch.models.vgg19 import vgg19_extract
+    from devc_tpu_torch.models.warpnet import embed_queries, warp_with_keys
+    from devc_tpu_torch.pipeline import video
+    from devc_tpu_torch.pipeline.frame import FEATURE_TAPS
+
+    ref, rgb = (torch.from_numpy(f).to(device)
+                for f in _textured(9, 2, (432, 768)))
+    with torch.inference_mode():
+        _, state = video._device_ref_features(models, ref)
+        _, lab_small = video._preprocess_device(rgb)
+        a_l = lab_small[..., 0:1]
+        gray = cs.gray_to_rgb(a_l)
+        feats = vgg19_extract(models.vgg, gray, FEATURE_TAPS)
+        taps = [cs.feature_normalize(f) for f in feats[1:]]
+        theta = embed_queries(models.warpnet, taps)
+        warped, sim = warp_with_keys(theta, state["phi"], state["values"],
+                                     (a_l.shape[1], a_l.shape[2]), 1e-10)
+        x = torch.cat([a_l, warped[..., 1:3], sim, lab_small], dim=-1)
+    return gray, taps, x
+
+
+def test_split_networks_near_float64(cuda, monkeypatch):
+    """VGG19, the query embedding and ColorVidNet at 432x768, each on the
+    same inputs: split (the rule as it is), plain fp32 (the rule off) and
+    float64. Each split network's outputs lie within 1e-4 of the largest
+    float64 output and no farther from float64 than the plain fp32
+    network's (C15)."""
+    import copy
+
+    from devc_tpu_torch.models.colorvidnet import colorvidnet_apply
+    from devc_tpu_torch.models.vgg19 import vgg19_extract
+    from devc_tpu_torch.models.warpnet import embed_queries
+    from devc_tpu_torch.ops import conv_split
+    from devc_tpu_torch.ops.layers import Conv2d
+    from devc_tpu_torch.pipeline.frame import FEATURE_TAPS
+
+    models = _models(cuda)
+    models64 = copy.deepcopy(models).double()
+    gray, taps, x = _network_inputs(models, cuda)
+    nets = {
+        "vgg19": lambda m, d: vgg19_extract(m.vgg, gray.to(d), FEATURE_TAPS),
+        "embed_queries": lambda m, d: [embed_queries(
+            m.warpnet, [t.to(d) for t in taps])],
+        "colorvidnet": lambda m, d: [colorvidnet_apply(m.colorvid, x.to(d))],
+    }
+    real_rule = conv_split.shape_rule
+    for name, net in nets.items():
+        with torch.inference_mode():
+            want = net(models64, torch.float64)
+            calls = Conv2d.split_calls
+            split = net(models, torch.float32)
+            assert Conv2d.split_calls > calls, name
+            monkeypatch.setattr(conv_split, "shape_rule", lambda *a: False)
+            calls = Conv2d.split_calls
+            plain = net(models, torch.float32)
+            assert Conv2d.split_calls == calls, name
+            monkeypatch.setattr(conv_split, "shape_rule", real_rule)
+        for i, (s, p, w) in enumerate(zip(split, plain, want)):
+            scale = w.abs().max().item()
+            err_s = (s.double() - w).abs().max().item() / scale
+            err_p = (p.double() - w).abs().max().item() / scale
+            print("network", name, i, "fp32", err_p, "split", err_s)
+            assert err_s <= 1e-4, (name, i, err_s)
+            assert err_s <= err_p, (name, i, err_s, err_p)
+
+
+def test_split_calls_count_a_frame(cuda):
+    """After one eager frame step at 432x768, `Conv2d.split_calls` has
+    grown by the number of the frame's convolutions the rule engages (57
+    of 60), `plain_calls` by the rest, and the kernel's launches by those
+    calls and their summing launches."""
+    from devc_tpu_torch.ops import conv_split
+    from devc_tpu_torch.ops.layers import Conv2d
+    from devc_tpu_torch.pipeline import video
+
+    models = _models(cuda)
+    ref, rgb = (torch.from_numpy(f).to(cuda)
+                for f in _textured(5, 2, (432, 768)))
+    _, state = video._device_ref_features(models, ref)
+    engaged, total, launches = [], [], []
+
+    def hook(m, inputs, out):
+        x = inputs[0]
+        total.append(1)
+        engaged.append(m._engages(x))
+        if engaged[-1]:
+            launches.append(_launches_of(
+                x, m.out_channels, m.kernel_size[0], m.stride[0],
+                m.padding[0], m.dilation[0]))
+
+    hooks = [m.register_forward_hook(hook) for m in models.modules()
+             if isinstance(m, Conv2d)]
+    before = (Conv2d.split_calls, Conv2d.plain_calls,
+              conv_split.split_conv2d.launches)
+    try:
+        video.frame_step(models, rgb, torch.zeros((1, 216, 384, 3),
+                                                  device=cuda), state)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    n = sum(engaged)
+    assert len(total) == 60 and n == 57
+    assert Conv2d.split_calls - before[0] == n
+    assert Conv2d.plain_calls - before[1] == len(total) - n
+    assert conv_split.split_conv2d.launches - before[2] == sum(launches)
+    assert not torch.backends.cudnn.allow_tf32
