@@ -11,12 +11,15 @@ measures chaos, not the program. Frame 0, from the zero carry, is always
 sampled: the start is checked from nothing the program made.
 
 On a few frames of some clips one near-tie goes the other way between
-any two fp32 computations (the program's, the fp32 reference's; each as
-far from a float64 reference as the other), and the random networks'
-instance norms spread it over part of the frame. A lower precision or a
-broken step moves every frame it touches by more than such a frame
-moves, so the numbers are read both over all sampled frames together and
-for the worst sampled frame alone (PERF.md gives the readings):
+two computations whose convolutions round differently, and the random
+networks' instance norms spread it over part of the frame. The program's
+convolutions are fp32-accurate products (3xTF32) and decide such ties
+as float64 does where plain fp32 convolutions do not, so the reference
+computes its convolutions in float64 (reference/infer.py). A lower
+precision or a broken step moves every frame it touches by more than
+such a frame moves, so the numbers are read both over all sampled
+frames together and for the worst sampled frame alone (PERF.md gives the
+readings):
 
   px_off          the share of output uint8 values more than 1 from the
                   reference, over all sampled frames

@@ -1,8 +1,9 @@
 """The control of each cell's comparison: the reference put in the
 program's place, computed in the nearest precision below the
 configuration's (TF32 for fp32 with TF32 off), judged by the same rule as
-a run. It has to come out as not correct; its readings set the upper end
-of each limit (PERF.md). For a training cell, the planted fault "half of
+a run, against the same judge (TF32 off, convolutions in float64). It has
+to come out as not correct; its readings set the upper end of each limit
+(PERF.md). For a training cell, the planted fault "half of
 the batch left out, the mean taken over the rest" is read beside it.
 
     python3 -m benchmark.control --workload stream432 --seeds 1 2 3 \
@@ -28,9 +29,10 @@ def control_numbers(cell_name: str, seed: int, n_frames: int,
                     device: str = "cuda", tf32: bool = True,
                     root: str | None = None,
                     bench_dir: str | None = None) -> dict:
-    """The reference as the program (TF32 on when tf32) over the cell's
-    first n_frames frames, teacher-forcing nothing: its own carry runs
-    on. The frames the cell's sample rule picks are judged as a run's."""
+    """The reference as the program (TF32 on when tf32; else the judge's
+    own reference, convolutions in float64) over the cell's first n_frames
+    frames, teacher-forcing nothing: its own carry runs on. The frames the
+    cell's sample rule picks are judged as a run's."""
     from benchmark import harness, scenes, weights
     from benchmark.drivers.clip import _Recorder, judge
     from benchmark.reference import infer
@@ -53,7 +55,8 @@ def control_numbers(cell_name: str, seed: int, n_frames: int,
     torch.backends.cudnn.allow_tf32 = tf32
     try:
         models = infer.Models.from_state_dicts(
-            weights.pipeline_state_dicts(seed, dev), dev)
+            weights.pipeline_state_dicts(seed, dev), dev,
+            float64_convolutions=not tf32)
         with torch.no_grad():
             state = infer.prepare_reference(
                 models, torch.from_numpy(ref_rgb)[None].to(dev))
@@ -79,8 +82,8 @@ def serve_control_numbers(cell_name: str, seed: int, n_frames: int,
                           root: str | None = None,
                           bench_dir: str | None = None) -> dict:
     """For a serving cell: the reference as the program (TF32 on when
-    tf32) over the backlog's jobs in order, each from the zero carry,
-    until n_frames frames; the frames the cell's sample rule picks are
+    tf32; else the judge's own) over the backlog's jobs in order, each
+    from the zero carry, until n_frames frames; the frames the cell's sample rule picks are
     judged as a run's (its written files aside: the control writes
     none)."""
     import shutil
@@ -106,7 +109,8 @@ def serve_control_numbers(cell_name: str, seed: int, n_frames: int,
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.allow_tf32 = tf32
         models = infer.Models.from_state_dicts(
-            weights.pipeline_state_dicts(seed, dev), dev)
+            weights.pipeline_state_dicts(seed, dev), dev,
+            float64_convolutions=not tf32)
         samples, done = {}, 0
         with torch.no_grad():
             for j, job in enumerate(jobs):
@@ -170,9 +174,10 @@ def main(argv=None) -> int:
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     p.add_argument("--frames", type=int, default=480)
-    p.add_argument("--fp32", action="store_true",
-                   help="the reference against itself, TF32 off (a check "
-                        "of the comparison: every number 0)")
+    p.add_argument("--itself", action="store_true",
+                   help="the judge's own reference (TF32 off, convolutions "
+                        "in float64) in the program's place (a check of "
+                        "the comparison: every number 0)")
     args = p.parse_args(argv)
     from benchmark import harness
 
@@ -187,12 +192,12 @@ def main(argv=None) -> int:
             numbers = train_control_numbers(args.workload, seed)
         elif driver == "serve":
             numbers = serve_control_numbers(args.workload, seed, args.frames,
-                                            tf32=not args.fp32)
+                                            tf32=not args.itself)
         else:
             numbers = control_numbers(args.workload, seed, args.frames,
-                                      tf32=not args.fp32)
+                                      tf32=not args.itself)
         print(json.dumps({"cell": args.workload, "seed": seed,
-                          "tf32": not args.fp32, **numbers}), flush=True)
+                          "tf32": not args.itself, **numbers}), flush=True)
     return 0
 
 

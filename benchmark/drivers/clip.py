@@ -8,7 +8,10 @@ dicts, one short clip of the same shapes and mode (every kernel loaded,
 cuDNN's choices made, a graph captured). The window starts when the timed clip asks for
 its first frame and ends `--seconds` later: the frame iterator stops
 there (a scan clip at its next chunk boundary). A traced run then goes on
-for the mix's `trace_frames` frames under the profiler.
+for the mix's `trace_frames` frames under the profiler. Where a metric of
+the cell reads the card's busy time over the window (run.window_device),
+benchmark/devclock.py records the card's activity from the window's start
+to the clip's end; every frame the clip delivered under it counts.
 
 Correctness: for the frames the mix's sample rule picks, the carry the
 frame entered with, its output and its new carry are copied aside as the
@@ -28,6 +31,7 @@ import torch
 
 from benchmark import compare, harness, scenes, weights
 from benchmark import trace as tr
+from benchmark.devclock import DeviceClock
 from benchmark.probe import Probe
 
 
@@ -125,9 +129,11 @@ def run(run, entries) -> dict:
     remove = _install_hooks(video, rec, use_stream=mode == "stream" or not cuda,
                             use_scan=mode == "scan" and cuda)
     n_trace = trf["trace_frames"] if run.traced else 0
+    clock = DeviceClock(device, run.window_device)
 
     def clip_frames():
         i = 0
+        clock.start()
         rec.t0 = time.perf_counter()
         run.record["setup_s"] = harness.process_age_s(run.record["t_start"])
         rec.phase = "window"
@@ -162,12 +168,19 @@ def run(run, entries) -> dict:
         print(f"the timed clip raised: {e!r}", file=sys.stderr)
         failed = 1
     finally:
+        clock.stop()
         remove()
         probe.restore()
     if cuda:
         torch.cuda.synchronize(device)
     in_window = [t for t in rec.times if t <= run.seconds]
     run.record.update(frames=len(in_window), times=in_window)
+    if clock.busy_s is not None:
+        run.record.update(device_busy_s=clock.busy_s,
+                          device_items=len(rec.times))
+        harness.note(f"device clock: {clock.busy_s:.4f} s busy over "
+                     f"{len(rec.times)} frames, {clock.operations} "
+                     f"operations ({clock.copy_s:.4f} s of copies)")
     card = harness.card(device)
     card["memory_peak_bytes"] = (torch.cuda.max_memory_allocated(device)
                                  if cuda else 0)
@@ -202,7 +215,8 @@ def run(run, entries) -> dict:
 
 def judge(run, samples, frames, ref_rgb, device) -> dict:
     """The compared numbers of the sampled frames {index: (carry_in, out,
-    carry_out)} against the reference, in fp32 with TF32 off."""
+    carry_out)} against the reference, in fp32 with TF32 off and its
+    convolutions in float64 (reference/infer.py says why)."""
     from benchmark.reference import infer
 
     cfg = run.config
@@ -212,7 +226,8 @@ def judge(run, samples, frames, ref_rgb, device) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     try:
         models = infer.Models.from_state_dicts(
-            weights.pipeline_state_dicts(run.seed, device), device)
+            weights.pipeline_state_dicts(run.seed, device), device,
+            float64_convolutions=True)
         with torch.no_grad():
             state = infer.prepare_reference(
                 models, torch.from_numpy(ref_rgb)[None].to(device))

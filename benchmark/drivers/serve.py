@@ -18,7 +18,11 @@ writer has written it, inside `--seconds` from there. ClipBatchScheduler
 has no stop of its own: the benchmark's wrapper of the scheduler's
 batched step raises at the first step past the window (past the traced
 stretch, in a traced run), run() releases its slots and the exception
-comes back here; the writer goes on to write what was queued.
+comes back here; the writer goes on to write what was queued. Where a
+metric of the cell reads the card's busy time over the window
+(run.window_device), benchmark/devclock.py records the card's activity
+from run()'s call until the writer has drained; every row stepped under
+it counts as a frame.
 
 Correctness: of each job its first frame (the zero carry, right after a
 refill) and one frame in `sample_every` are copied aside as the step
@@ -44,6 +48,7 @@ import torch
 
 from benchmark import compare, harness, scenes, weights
 from benchmark import trace as tr
+from benchmark.devclock import DeviceClock
 from benchmark.probe import Probe
 
 JPEG_QUALITY = 95  # the port's writer (pipeline/video.py::_save)
@@ -195,6 +200,7 @@ def _serve(run, entries, tmp) -> dict:
         out_dirs.append(os.path.join(tmp, "out", f"j{j:03d}"))
         sched.submit(job["clip"], job["ref"], out_dirs[-1])
     probe = Probe(entries, run.traced, device)
+    clock = DeviceClock(device, run.window_device)
     rec = _Recorder(trf["sample_every"],
                     int(scenes.rng_for(run.seed, 2).integers(
                         trf["sample_every"])),
@@ -203,6 +209,7 @@ def _serve(run, entries, tmp) -> dict:
     remove = _install_hooks(sched_mod, rec)
     harness.note("set-up done")
     failed, ended = 0, False
+    clock.start()
     rec.t0 = time.perf_counter()
     run.record["setup_s"] = harness.process_age_s(run.record["t_start"])
     try:
@@ -221,11 +228,18 @@ def _serve(run, entries, tmp) -> dict:
         while (len(rec.writes) < rec.queued
                and time.perf_counter() < deadline):
             time.sleep(0.01)
+        clock.stop()
         remove()
     if cuda:
         torch.cuda.synchronize(device)
     served = sorted(t for t in rec.writes if t <= run.seconds)
     run.record.update(times=served, frames=len(served))
+    if clock.busy_s is not None:
+        run.record.update(device_busy_s=clock.busy_s,
+                          device_items=rec.queued)
+        harness.note(f"device clock: {clock.busy_s:.4f} s busy over "
+                     f"{rec.queued} frames stepped, {clock.operations} "
+                     f"operations ({clock.copy_s:.4f} s of copies)")
     card = harness.card(device)
     card["memory_peak_bytes"] = (torch.cuda.max_memory_allocated(device)
                                  if cuda else 0)
@@ -260,8 +274,9 @@ def _serve(run, entries, tmp) -> dict:
     return outcome
 
 
-def reference_outputs(run, samples, jobs, device, tf32: bool = False):
-    """{(job, frame): (ref_out, ref_carry)} of the plain reference for the
+def reference_outputs(run, samples, jobs, device):
+    """{(job, frame): (ref_out, ref_carry)} of the plain reference (TF32
+    off, convolutions in float64, as drivers/clip.py's judge) for the
     sampled frames {(job, frame): (carry_in, ...)}, each from its carry in,
     from the frame's and the exemplar's files."""
     from benchmark.reference import infer
@@ -269,11 +284,12 @@ def reference_outputs(run, samples, jobs, device, tf32: bool = False):
     cfg = run.config
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         models = infer.Models.from_state_dicts(
-            weights.pipeline_state_dicts(run.seed, device), device)
+            weights.pipeline_state_dicts(run.seed, device), device,
+            float64_convolutions=True)
         out, state, state_of = {}, None, None
         with torch.no_grad():
             for j, f in sorted(samples):

@@ -46,6 +46,13 @@ def cell_metrics(manifest: dict, cell: str, traced: bool) -> list:
     return [m for m in group if cell in m.get("workloads", (cell,))]
 
 
+def wants_window_device(readers) -> bool:
+    """Whether a reader asks for the card's busy time over the window
+    (WINDOW_DEVICE in its module): the driver then runs devclock's
+    DeviceClock over the window, and leaves the window alone otherwise."""
+    return any(getattr(r, "WINDOW_DEVICE", False) for r in readers)
+
+
 def load_file_module(path: str, name: str):
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
@@ -93,6 +100,8 @@ class Run:
     record: dict = field(default_factory=dict)
     trace: object = None  # trace.Trace of the traced stretch
     entry_calls: dict = field(default_factory=dict)  # range -> [call args]
+    # a metric reads the card's busy time over the window (devclock.py)
+    window_device: bool = False
 
 
 def note(msg: str) -> None:
@@ -164,6 +173,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, traced: bool,
         "bench_driver_" + run.traffic["driver"])
     entries = sorted({r.ENTRY for r in readers.values()
                       if getattr(r, "ENTRY", None)})
+    run.window_device = wants_window_device(readers.values())
     outcome = driver.run(run, entries)
     values = {}
     for m in metrics:

@@ -6,7 +6,15 @@ guided by the truncated L, Lab -> uint8), on the plain modules beside
 this file. It imports nothing of the port.
 
 Weights come in as the state dicts {"vgg", "warpnet", "colorvid"} that
-the benchmark draws from its seed and hands to the port as well."""
+the benchmark draws from its seed and hands to the port as well.
+
+The judge of the inference cells builds the models with
+`float64_convolutions=True`: every convolution is computed in float64
+and rounded to fp32, the rest stays fp32 with TF32 off. At the
+correspondence's temperature (1e-10) the softmax picks a key by scores
+that can tie to within fp32's rounding of the convolutions before them;
+there an fp32 reference decides the tie by its own rounding and reads a
+sound run as off, where float64 decides it as the truth does."""
 
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from torch import nn
 from benchmark.reference import colorspace as cs
 from benchmark.reference.colorvidnet import ColorVidNet, colorvidnet_apply
 from benchmark.reference.fgs import fast_global_smoother
+from benchmark.reference.layers import Conv2d
 from benchmark.reference.resize import resize_bilinear
 from benchmark.reference.vgg19 import VGG19, vgg19_extract
 from benchmark.reference.warpnet import (
@@ -38,7 +47,8 @@ class Models(nn.Module):
         self.colorvid = ColorVidNet()
 
     @classmethod
-    def from_state_dicts(cls, state_dicts: dict, device) -> "Models":
+    def from_state_dicts(cls, state_dicts: dict, device,
+                         float64_convolutions: bool = False) -> "Models":
         with torch.device("meta"):
             models = cls()
         for name in ("vgg", "warpnet", "colorvid"):
@@ -46,6 +56,9 @@ class Models(nn.Module):
                 state_dicts[name], strict=True, assign=True)
         models = models.to(device).eval()
         models.requires_grad_(False)
+        for m in models.modules():
+            if isinstance(m, Conv2d):
+                m.float64 = float64_convolutions
         return models
 
 

@@ -8,7 +8,9 @@ Semantics are those of the reference's PyTorch layers: InstanceNorm2d
 (affine=False, biased variance, eps 1e-5), PReLU with one shared slope,
 LeakyReLU, ReflectionPad2d and replicate padding. Convolutions are
 `Conv2d`, an `nn.Conv2d` (same parameters and keys) that runs a batch
-one sample at a time on the card under inference mode. `unfold_patches`
+one sample at a time on the card under inference mode; with its
+`float64` set (the inference cells' judge) it computes in float64 and
+rounds the result to the input's dtype. `unfold_patches`
 (the losses' F.unfold) takes devc_tpu's NHWC layout, as its callers do.
 
 Every layer computes in its input's dtype: `Conv2d`, `PReLU` and `prelu`
@@ -47,10 +49,18 @@ def scalar(value: float, like: torch.Tensor) -> float:
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d (same parameters and keys) that casts its parameters to
-    the input's dtype; the batch is convolved whole."""
+    the input's dtype; the batch is convolved whole. With `float64` set,
+    input, weight and bias are widened, convolved in float64 and the
+    result rounded once to the input's dtype."""
+
+    float64 = False
 
     def forward(self, x):
         w, b = self.weight, self.bias
+        if self.float64:
+            y = self._conv_forward(x.double(), w.double(),
+                                   b.double() if b is not None else None)
+            return y.to(x.dtype)
         if w.dtype != x.dtype:
             w = w.to(x.dtype)
             b = b.to(x.dtype) if b is not None else None

@@ -1,7 +1,8 @@
 """The controls on the card, at the cells' own size: the reference in TF32
 in the program's place must come out as not correct on every seed, by the
 cell's own limits (for the training cell, the reference on half of each
-batch too); the reference in fp32 against itself must read 0.
+batch too); the judge's own reference (TF32 off, convolutions in
+float64) in the program's place must read 0.
 Run on the card with `python -m pytest benchmark/tests -q -m cuda`."""
 
 import json

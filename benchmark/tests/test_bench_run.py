@@ -55,7 +55,9 @@ def test_a_cpu_run_of_each_cell_is_correct(tiny_bench, cell):
                          bench_dir=bench)
     assert r["correct"], r["checks"]
     assert r["attempted"] > 0 and r["failed"] == 0
-    assert {"frame_ms", "setup_s"} <= set(r["metrics"])
+    # stream432's frame_device_ms reads the card: nothing to read here
+    assert set(r["metrics"]) == {"stream432": {"setup_s"},
+                                 "scan432": {"frame_ms", "setup_s"}}[cell]
     assert list(r)[-1] == "checks"
     assert r["checks"]["sampled_frames"]["value"] >= 2
 
@@ -65,8 +67,10 @@ def test_a_traced_cpu_run_reports_its_per_layer_metrics(tiny_bench):
     r = harness.run_cell("stream432", 11, 1.0, True, "cpu", root=root,
                          bench_dir=bench)
     assert r["correct"], r["checks"]
-    assert "idle_pct.frame" in r["metrics"]
-    assert "mfu.frame" not in r["metrics"]  # no device time to read on the CPU
+    assert "idle_pct.stream" in r["metrics"]
+    assert "mfu.stream" not in r["metrics"]  # no device time to read on the CPU
+    # the host's pace, read over the window the profiler leaves alone
+    assert r["metrics"]["frame_ms.stream"]["value"] > 0
     assert {"busy_s", "window_s"} <= set(r["device"])
     assert set(r["breakdown"]) == {"device_ops", "idle_gaps"}
 
@@ -147,7 +151,7 @@ def test_a_configuration_mix_and_metric_are_added_by_files_alone(tiny_bench):
                          bench_dir=bench)
     assert r["correct"], r["checks"]
     assert r["metrics"]["frames_in_window"]["value"] == r["attempted"] > 0
-    assert "frame_p95_ms" not in r["metrics"]  # stream432's alone
+    assert "frame_ms" not in r["metrics"]  # scan432's alone
 
 
 def test_the_module_check_compares_whole_top_level_names():
@@ -223,9 +227,21 @@ def test_a_cpu_run_of_the_serving_cell_is_correct(tiny_bench):
                          root=root, bench_dir=bench)
     assert r["correct"], r["checks"]
     assert r["attempted"] > 0 and r["failed"] == 0
-    assert {"serve_frames_per_s", "setup_s"} == set(r["metrics"])
+    # frame_device_ms reads the card: nothing to read here
+    assert {"setup_s"} == set(r["metrics"])
     assert r["checks"]["written_off"]["value"] == 0.0
     assert r["checks"]["sampled_frames"]["value"] >= 4  # each job's first
+
+
+def test_a_traced_cpu_run_of_the_serving_cell_reports_its_rate(tiny_bench):
+    """frames_per_s.serve, the host's rate, from the window that a traced
+    run leaves untraced."""
+    root, bench = tiny_bench
+    r = harness.run_cell("serve432-b4", 2**31 + 11, 2.0, True, "cpu",
+                         root=root, bench_dir=bench)
+    assert r["correct"], r["checks"]
+    assert r["metrics"]["frames_per_s.serve"]["value"] == pytest.approx(
+        r["attempted"] / 2.0)
 
 
 @pytest.mark.parametrize("fault", ["stale_answer", "channels_swapped",

@@ -1,12 +1,14 @@
 """The yardstick: the bounds against PERF.md's kernel table (the bounds
-chip_smoke.py computes), and the model FLOP count against
-torch.utils.flop_counter on the port's own step at a small size."""
+chip_smoke.py computes), the model FLOP count against
+torch.utils.flop_counter on the port's own step at a small size, and the
+inference judge's float64 convolutions."""
 
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark import flops, roofline
+from benchmark import flops, roofline, weights
+from benchmark.reference import infer, layers
 
 
 @pytest.mark.parametrize("case, bound_ms, by", [
@@ -70,3 +72,28 @@ def test_432x768_frame_is_348_gflop():
            "corr_channels": 256}
     assert flops.inference_frame_flop(cfg) == pytest.approx(348.39e9,
                                                             rel=1e-4)
+
+
+def test_the_judges_convolutions_are_float64_rounded_once():
+    """Models built for the judge compute every convolution in float64 and
+    round once to fp32; the default build (training, the controls) stays
+    in the input's dtype."""
+    sd = weights.pipeline_state_dicts(5, "cpu")
+    judge = infer.Models.from_state_dicts(sd, "cpu",
+                                          float64_convolutions=True)
+    plain = infer.Models.from_state_dicts(sd, "cpu")
+    convs = [m for m in judge.modules() if isinstance(m, layers.Conv2d)]
+    assert len(convs) > 40 and all(c.float64 for c in convs)
+    assert not any(m.float64 for m in plain.modules()
+                   if isinstance(m, layers.Conv2d))
+    conv = judge.vgg.conv1_1
+    x = torch.randn(1, conv.in_channels, 9, 11, dtype=torch.float64)
+    want = torch.nn.functional.conv2d(
+        x, conv.weight.double(), conv.bias.double(), conv.stride,
+        conv.padding, conv.dilation)
+    got = conv(x.float())
+    assert got.dtype == torch.float32
+    assert torch.equal(got, torch.nn.functional.conv2d(
+        x.float().double(), conv.weight.double(), conv.bias.double(),
+        conv.stride, conv.padding, conv.dilation).float())
+    assert (got.double() - want).abs().max() < 1e-5
